@@ -6,21 +6,27 @@
 Phases, each of which exits non-zero when it fails:
 
 1. device   -- requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build    -- builds every CUDA kernel of the serving path with ``nvcc``
-               for sm_90a from ``src/repro_torch/csrc`` (one process per
-               source, all at once).
+2. build    -- builds every CUDA kernel of the serving and training paths
+               with ``nvcc`` for sm_90a from ``src/repro_torch/csrc`` (one
+               process per source, all at once).
 3. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
-               real batch at the paper's GraphSAGE config (batch 1000,
-               fanouts 15/10/5) and holds each kernel against its plain
-               PyTorch version on the card at the shapes that batch gives:
-               K1 ``fused_gather_aggregate`` on each of the 3 layers, K2
-               ``segment_sum`` as ``_degrees`` (F = 1) on each layer and
-               in its general form (F = 256, float32 and bfloat16). Two
-               runs of a kernel must be bitwise equal. Each case prints
-               the kernel's time, the plain version's, one PyTorch library
-               call's (a yardstick the port never calls), the bound from
-               the bytes it must move, and the max error.
-4. serving  -- the main path: ``repro_torch.launch.gnn_serve`` at its
+               real batch at the paper's config (batch 1000, fanouts
+               15/10/5; GraphSAGE and GAT share it) and holds each kernel
+               against its plain PyTorch version on the card at the shapes
+               that batch gives: K1 ``fused_gather_aggregate`` and its
+               backward, K2 ``segment_sum`` as ``_degrees`` (F = 1) and in
+               its general form (F = 256, float32 and bfloat16) with the
+               GraphSAGE weights; K4's statistics and normalize kernels,
+               K3's forward and its backward into the scores and into
+               h_proj with the GAT weights (in 100, hidden 256, 2 heads),
+               on each of the 3 layers. Backward kernels are held against
+               ``torch.autograd.grad`` through the plain versions. Two runs
+               of a kernel must be bitwise equal. Each case prints the
+               kernel's time, the plain version's, one PyTorch library
+               call's where one computes the same function (a yardstick the
+               port never calls), the bound from the bytes it must move,
+               and the max error.
+4. serving  -- a main path: ``repro_torch.launch.gnn_serve`` at its
                defaults (batch 8, micro-batch capacity 8) with GraphSAGE
                at full width (in 100, hidden 256, 16 classes, 3 layers),
                with every kernel's launch count set to 0 just before and
@@ -28,25 +34,41 @@ Phases, each of which exits non-zero when it fails:
                server with ``impl="ref"``, and one request served alone
                against the same request co-batched (identical bytes);
                then where one full tick's time goes, from the spans of a
-               server built as ``gnn_serve`` builds it (sampling, pulls,
-               stacking, staging, forward and copy back), and both
-               kernels again on that server's last tick, as in phase 3.
+               server built as ``gnn_serve`` builds it, and K1 and K2
+               again on that server's last tick, as in phase 3.
 5. paper    -- one 1000-node request with ``batch_size=1000`` and capacity
                1; the kernel path against ``impl="ref"``.
-6. report   -- a JSON line of every ported kernel (its times summed over
-               the 3 layers of one serving tick, and of one batch-1000
-               forward under ``paper_batch``; its launches on the main
-               path), the ``nvidia-smi`` line, and last
-               ``{"ok": true, "device": {...}}``.
+6. training -- the other main paths: ``repro_torch.launch.train`` for one
+               epoch of synchronous training on product-sim scale 14, GAT
+               and then GraphSAGE at full width, 2 machines x 2 trainers,
+               batch 128 (3 steps), each with every launch count set to 0
+               just before and read just after; every kernel of the path
+               must have launched. Then the first step's loss and
+               gradients against the same step with ``impl="ref"``, a
+               second identical run that must end with bitwise-identical
+               parameters, where one step's time goes (from the second
+               run's spans), and the path's kernels again on the first
+               step's stacked batch, as in phase 3.
+7. report   -- a JSON line of every ported kernel (its times summed over
+               the layers of one serving tick or training step, the main
+               path's shapes, and of one batch-1000 forward and backward
+               under ``paper_batch``; its launches on each main path), the
+               ``nvidia-smi`` line, and last ``{"ok": true, "device":
+               {...}}``.
 
 Tolerances: a kernel against its plain version in float32 rtol = atol =
 1e-5 (degrees are integers and compare exactly), in bfloat16 rtol = 0.1,
-atol = 0.5; served logits against ``impl="ref"`` rtol = 1e-4, atol = 1e-5
-(the plain version's ``index_add_`` adds with atomics, in another order).
-Times are CUDA-event medians over launches, with L2 flushed before each.
+atol = 0.5; served logits against ``impl="ref"`` rtol = 1e-4, atol = 1e-5,
+and a training step's loss and gradients against ``impl="ref"`` rtol =
+1e-4, atol = 1e-5 (the plain versions' ``index_add_`` adds with atomics,
+in another order). A kernel is held against its plain version computed
+with PyTorch's deterministic algorithms (:func:`stable_order`), so that the
+check gives the same answer on every run. Times are CUDA-event medians
+over launches, with L2 flushed before each.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -62,16 +84,43 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 REPS = 30
 
+K1 = "src/repro/kernels/fused_gather_aggregate/kernel.py:58"
+K3 = "src/repro/kernels/fused_edge_softmax_aggregate/kernel.py:63"
+K4 = "src/repro/kernels/edge_softmax/kernel.py:69"
+CSRC = "src/repro_torch/csrc/"
+# report name -> the wrapper whose count it reads, its source, the TPU
+# kernel it replaces, and the main paths that launch it there
 KERNELS = {
-    "fused_gather_aggregate": {
-        "source": "src/repro_torch/csrc/fused_gather_aggregate.cu",
-        "replaces": "src/repro/kernels/fused_gather_aggregate/kernel.py:58",
-    },
-    "segment_sum": {
-        "source": "src/repro_torch/csrc/segment_sum.cu",
-        "replaces": "src/repro/kernels/segment_sum/kernel.py:55",
-    },
+    "fused_gather_aggregate": dict(
+        wrapper="fused_gather_aggregate",
+        source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
+        paths=("serving", "train_graphsage")),
+    "segment_sum": dict(
+        wrapper="segment_sum", source=CSRC + "segment_sum.cu",
+        replaces="src/repro/kernels/segment_sum/kernel.py:55",
+        paths=("serving", "train_graphsage", "train_gat")),
+    "fused_gather_aggregate_bwd": dict(
+        wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
+        paths=("train_graphsage",)),
+    "edge_softmax_stats": dict(
+        wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
+        replaces=K4, paths=("train_gat",)),
+    "edge_softmax_norm": dict(
+        wrapper="edge_softmax_norm", source=CSRC + "edge_softmax.cu",
+        replaces=K4, paths=("train_gat",)),
+    "fused_edge_softmax_aggregate": dict(
+        wrapper="fused_edge_softmax_aggregate",
+        source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
+        paths=("train_gat",)),
+    "fused_edge_softmax_aggregate_bwd": dict(
+        wrapper="fused_edge_softmax_aggregate_bwd",
+        source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
+        paths=("train_gat",)),
+    "fused_edge_softmax_aggregate_bwd_h": dict(
+        wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K3,
+        paths=("train_gat",)),
 }
+TRAIN_BATCH = 128
 
 
 class SmokeFailure(RuntimeError):
@@ -122,6 +171,25 @@ def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+@contextlib.contextmanager
+def stable_order(torch):
+    """Compute the plain versions that a kernel is held against with
+    PyTorch's deterministic algorithms: ``index_add_`` on the card then
+    sums each row's terms in the stable sorted order of its index, not
+    with atomics in an order that changes from run to run. Where hundreds
+    of unit-scale terms nearly cancel (K1's backward at layer 0, a source
+    row read by hundreds of edges), two orders differ by more than the
+    1e-5 tolerance (5.3e-5 seen), and the check would pass or fail by
+    chance. The tolerance stays as stated."""
+    was_on = torch.are_deterministic_algorithms_enabled()
+    was_warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was_on, warn_only=was_warn_only)
+
+
 def check_close(torch, got, want, rtol, atol, what) -> None:
     ok = bool(torch.isclose(got.float(), want.float(), rtol=rtol,
                             atol=atol).all())
@@ -166,7 +234,7 @@ def sample_paper_batch(g, cfg):
     """One real batch at the paper's config, featurized on the host."""
     import numpy as np
 
-    from repro_torch.api.inference import _model_blocks
+    from repro_torch.core.pipeline.minibatch import host_blocks
     from repro_torch.core.sampler import (DistributedSampler,
                                           sample_ego_networks)
 
@@ -177,7 +245,7 @@ def sample_paper_batch(g, cfg):
                                             replace=False)
     mb = next(sample_ego_networks(sampler, g.new_client(), g.feat_name,
                                   seeds, drop_last=False))
-    return {"input_feats": mb.input_feats, "blocks": _model_blocks(mb)}
+    return {"input_feats": mb.input_feats, "blocks": host_blocks(mb)}
 
 
 def k1_case(torch, label, h, block, num_dst, groups, results):
@@ -187,7 +255,8 @@ def k1_case(torch, label, h, block, num_dst, groups, results):
     es, ed, em = block["edge_src"], block["edge_dst"], block["edge_mask"]
     out1 = fused_gather_aggregate_cuda(h, es, groups)
     out2 = fused_gather_aggregate_cuda(h, es, groups)
-    plain = fused_gather_aggregate_ref(h, es, ed, em, num_dst)
+    with stable_order(torch):
+        plain = fused_gather_aggregate_ref(h, es, ed, em, num_dst)
     torch.cuda.synchronize()
     what = f"fused_gather_aggregate {label}"
     require(torch.equal(out1, out2), f"{what}: two runs differ")
@@ -230,7 +299,8 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     ed, em = block["edge_dst"], block["edge_mask"]
     out1 = segment_sum_cuda(msg, groups)
     out2 = segment_sum_cuda(msg, groups)
-    plain = segment_sum_ref(msg, ed, em, num_dst)
+    with stable_order(torch):
+        plain = segment_sum_ref(msg, ed, em, num_dst)
     torch.cuda.synchronize()
     what = f"segment_sum {label}"
     require(torch.equal(out1, out2), f"{what}: two runs differ")
@@ -263,16 +333,81 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     return out1
 
 
-def layer_cases(torch, tag, batch, caps, params, general=False) -> dict:
+def k1_bwd_case(torch, label, h, block, num_dst, groups, on_path,
+                results):
+    """K1's backward, the source-keyed kernel with weight 1: through
+    autograd against autograd through the plain version, and alone."""
+    from repro_torch.kernels import (fused_gather_aggregate,
+                                     fused_gather_aggregate_ref, src_groups,
+                                     src_scatter_cuda, src_scatter_ref)
+
+    es, ed, em = block["edge_src"], block["edge_dst"], block["edge_mask"]
+    v, f = h.shape
+    hg = h.detach().requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grad_out = torch.randn((num_dst, f), generator=gen, device="cuda")
+    (got,) = torch.autograd.grad(fused_gather_aggregate(
+        hg, es, ed, em, num_dst, impl="cuda", groups=groups), hg, grad_out)
+    with stable_order(torch):
+        plain_out = fused_gather_aggregate_ref(hg, es, ed, em, num_dst)
+        (want,) = torch.autograd.grad(plain_out, hg, grad_out,
+                                      retain_graph=True)
+        plain_scatter = src_scatter_ref(grad_out, es, ed, em, v)
+    by_src = src_groups(es, em, v)
+    out1 = src_scatter_cuda(grad_out, ed, by_src)
+    out2 = src_scatter_cuda(grad_out, ed, by_src)
+    torch.cuda.synchronize()
+    what = f"fused_gather_aggregate backward {label}"
+    require(torch.equal(out1, out2) and torch.equal(out1, got),
+            f"{what}: two runs differ")
+    check_close(torch, got, want, 1e-5, 1e-5, what)
+    check_close(torch, out1, plain_scatter, 1e-5, 1e-5,
+                what + " (plain version)")
+
+    live = em.nonzero().squeeze(1)
+    # library yardstick: one cuSPARSE CSR x dense product with the
+    # transposed (source x destination) live-edge matrix
+    at = torch.sparse_coo_tensor(
+        torch.stack([es[live].long(), ed[live].long()]),
+        torch.ones(live.numel(), device="cuda"), (v, num_dst)
+    ).coalesce().to_sparse_csr()
+    # the least the function moves: the mask of every slot, both indices
+    # of every live edge, each gradient row a live edge reads once, and
+    # the whole output (V x F, zeros included)
+    n_ref_rows = int(torch.unique(ed[live]).numel())
+    nbytes = (es.numel() + live.numel() * 8 + n_ref_rows * f * 4
+              + v * f * 4)
+    bound_ms, bound_by = bound(nbytes, live.numel() * f)
+    case = {
+        "case": f"K1 backward {label}", "V": v, "F": f, "E": es.numel(),
+        "E_live": int(live.numel()), "num_dst": num_dst,
+        "on_path": on_path,
+        "kernel_ms": cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed,
+                                                             by_src)),
+        "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            plain_out, hg, grad_out, retain_graph=True)),
+        "library_ms": cuda_ms(torch, lambda: torch.sparse.mm(at, grad_out)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": max_err(torch, got, want),
+    }
+    results.append(case)
+    log(f"[kernels] {json.dumps(case)}")
+
+
+def layer_cases(torch, tag, batch, caps, params, general=False,
+                backward=False) -> dict:
     """K1, and K2 as ``_degrees``, on every layer of one staged batch
-    (with or without the serving stack axis, flattened as ``sage_layer``
-    flattens it), each layer's input from the plain forward; with
-    ``general``, K2 in its general form on layer 0's edges too."""
+    (with or without the stack axis, flattened as ``sage_layer`` flattens
+    it), each layer's input from the plain forward; with ``general``, K2
+    in its general form on layer 0's edges too; with ``backward``, K1's
+    backward on every layer (training runs it on layers 1 and 2: layer 0's
+    input is features)."""
     from repro_torch.kernels import dst_groups
     from repro_torch.models.gnn import sage_layer
     from repro_torch.models.gnn.layers import _flat_edges
 
-    results = {"fused_gather_aggregate": [], "segment_sum": []}
+    results = {"fused_gather_aggregate": [], "segment_sum": [],
+               "fused_gather_aggregate_bwd": []}
     h = batch["input_feats"]
     for layer, block in enumerate(batch["blocks"]):
         hs = h if h.dim() == 3 else h[None]
@@ -291,6 +426,9 @@ def layer_cases(torch, tag, batch, caps, params, general=False) -> dict:
                       flat, n, groups, results["segment_sum"], 0.0, 0.0)
         require(bool((deg == deg.round()).all()),
                 f"degrees {label} are not integers")
+        if backward:
+            k1_bwd_case(torch, label, hs.reshape(s * v, f), flat, n, groups,
+                        layer > 0, results["fused_gather_aggregate_bwd"])
         if general and layer == 0:
             gen = torch.Generator(device="cuda").manual_seed(0)
             msg = torch.randn((ed.numel(), 256), generator=gen,
@@ -300,14 +438,218 @@ def layer_cases(torch, tag, batch, caps, params, general=False) -> dict:
             k2_case(torch, f"general F=256 bfloat16 {label}",
                     msg.to(torch.bfloat16), flat, n, groups, [], 0.1, 0.5)
             del msg
-        with torch.inference_mode():
+        with torch.no_grad():
             h = sage_layer(params["layers"][layer], h, block, caps[layer],
                            activation=torch.relu, impl="ref")
     return results
 
 
-def phase_kernels(torch, g, cfg, params) -> dict:
-    """Both kernels at the paper's batch on the card."""
+def _plain_stats(torch, scores, ed, em, n):
+    """K4's statistics as the plain version computes them: the masked max
+    (0 for a destination with no live edge) and the denominator."""
+    s = torch.where(em[:, None], scores, -1e30)
+    m = torch.full((n, s.shape[1]), -1e30, device="cuda").scatter_reduce(
+        0, ed.long()[:, None].expand_as(s), s, "amax")
+    m = torch.where(m <= -5e29, 0.0, m)
+    ex = torch.where(em[:, None], torch.exp(s - m[ed.long()]), 0.0)
+    return m, torch.zeros_like(m).index_add_(0, ed.long(), ex)
+
+
+def gat_cases(torch, tag, batch, caps, params) -> dict:
+    """K4 (statistics, normalize), K3's forward and K3's backward (into the
+    scores, and into h_proj through the source-keyed kernel) on every GAT
+    layer of one staged batch, each layer's input from the plain forward.
+    The backward is held against ``torch.autograd.grad`` through the plain
+    version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        dst_groups, edge_softmax_norm_cuda, edge_softmax_ref,
+        edge_softmax_stats_cuda, fused_edge_softmax_aggregate,
+        fused_edge_softmax_aggregate_bwd_cuda,
+        fused_edge_softmax_aggregate_cuda, fused_edge_softmax_aggregate_ref,
+        src_groups, src_scatter_cuda)
+    from repro_torch.models.gnn import gat_layer
+    from repro_torch.models.gnn.layers import gat_attention_inputs
+
+    names = ("edge_softmax_stats", "edge_softmax_norm",
+             "fused_edge_softmax_aggregate",
+             "fused_edge_softmax_aggregate_bwd",
+             "fused_edge_softmax_aggregate_bwd_h")
+    results = {k: [] for k in names}
+    h = batch["input_feats"]
+    last = len(batch["blocks"]) - 1
+    for layer, block in enumerate(batch["blocks"]):
+        p = params["layers"][layer]
+        with torch.no_grad():
+            hp, el, er, es, ed, em = gat_attention_inputs(p, h, block,
+                                                          caps[layer])
+            scores = F.leaky_relu(el[es.long()] + er[ed.long()], 0.2)
+        v, heads, d_h = hp.shape
+        f = heads * d_h
+        e = es.numel()
+        n = er.shape[0]
+        by_dst = dst_groups(ed, em, n)
+        by_src = src_groups(es, em, v)
+        label = f"{tag} layer {layer}"
+        live = em.nonzero().squeeze(1)
+        e_live = int(live.numel())
+        n_dst_live = int(torch.unique(ed[live]).numel())
+        n_src_rows = int(torch.unique(es[live]).numel())
+        idx_bytes = e + e_live * 8            # mask of every slot, indices
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        grad_out = torch.randn((n, f), generator=gen, device="cuda")
+
+        # K4: statistics, then normalize
+        m1, z1 = edge_softmax_stats_cuda(scores, by_dst)
+        m2, z2 = edge_softmax_stats_cuda(scores, by_dst)
+        a1 = edge_softmax_norm_cuda(scores, ed, em, m1, z1)
+        a2 = edge_softmax_norm_cuda(scores, ed, em, m2, z2)
+        with stable_order(torch):
+            pm, pz = _plain_stats(torch, scores, ed, em, n)
+            plain_alpha = edge_softmax_ref(scores, ed, em, n)
+        torch.cuda.synchronize()
+        require(torch.equal(m1, m2) and torch.equal(z1, z2)
+                and torch.equal(a1, a2), f"K4 {label}: two runs differ")
+        check_close(torch, m1, pm, 0.0, 0.0, f"K4 statistics max {label}")
+        check_close(torch, z1, pz, 1e-5, 1e-5,
+                    f"K4 statistics denominator {label}")
+        check_close(torch, a1, plain_alpha, 1e-5, 1e-5, f"K4 {label}")
+        stats_bytes = (e + e_live * (4 + 4 * heads) + 2 * n * heads * 4)
+        add_case(results["edge_softmax_stats"], f"K4 statistics {label}",
+                 dict(E=e, E_live=e_live, H=heads, num_dst=n),
+                 cuda_ms(torch, lambda: edge_softmax_stats_cuda(scores,
+                                                                by_dst)),
+                 cuda_ms(torch, lambda: _plain_stats(torch, scores, ed, em,
+                                                     n)),
+                 None, bound(stats_bytes, 4 * e_live * heads),
+                 max(max_err(torch, m1, pm), max_err(torch, z1, pz)))
+        norm_bytes = (e + e_live * 4 + e_live * heads * 4
+                      + 2 * n_dst_live * heads * 4 + e * heads * 4)
+        add_case(results["edge_softmax_norm"], f"K4 normalize {label}",
+                 dict(E=e, E_live=e_live, H=heads, num_dst=n),
+                 cuda_ms(torch, lambda: edge_softmax_norm_cuda(
+                     scores, ed, em, m1, z1)),
+                 cuda_ms(torch, lambda: edge_softmax_ref(scores, ed, em, n)),
+                 None, bound(norm_bytes, 3 * e_live * heads),
+                 max_err(torch, a1, plain_alpha))
+
+        # library yardstick for K3's aggregate and its backward into
+        # h_proj: one cuSPARSE product with the attention weights as a
+        # (num_dst*H) x (V*H) matrix, given alpha (the port never calls it)
+        rows = (ed[live].long() * heads)[:, None] + torch.arange(
+            heads, device="cuda")
+        cols = (es[live].long() * heads)[:, None] + torch.arange(
+            heads, device="cuda")
+        att = torch.sparse_coo_tensor(
+            torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+            a1[live].reshape(-1), (n * heads, v * heads)).coalesce()
+        att_t = att.t().coalesce().to_sparse_csr()
+        att = att.to_sparse_csr()
+
+        # K3's forward (after the statistics)
+        out1 = fused_edge_softmax_aggregate_cuda(hp, scores, es, by_dst, m1,
+                                                 z1)
+        out2 = fused_edge_softmax_aggregate_cuda(hp, scores, es, by_dst, m1,
+                                                 z1)
+        with stable_order(torch):
+            plain_out = fused_edge_softmax_aggregate_ref(hp, scores, es, ed,
+                                                         em, n)
+        torch.cuda.synchronize()
+        require(torch.equal(out1, out2), f"K3 {label}: two runs differ")
+        check_close(torch, out1, plain_out, 1e-5, 1e-5, f"K3 {label}")
+        check_close(torch, torch.sparse.mm(att, hp.view(v * heads, d_h)
+                                           ).view(n, f), plain_out,
+                    1e-5, 1e-5, f"K3 {label} library yardstick")
+        fwd_bytes = (idx_bytes + e_live * heads * 4 + 2 * n * heads * 4
+                     + n_src_rows * f * 4 + n * f * 4)
+        add_case(results["fused_edge_softmax_aggregate"], f"K3 {label}",
+                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
+                 cuda_ms(torch, lambda: fused_edge_softmax_aggregate_cuda(
+                     hp, scores, es, by_dst, m1, z1)),
+                 cuda_ms(torch, lambda: fused_edge_softmax_aggregate_ref(
+                     hp, scores, es, ed, em, n)),
+                 cuda_ms(torch, lambda: torch.sparse.mm(
+                     att, hp.view(v * heads, d_h))),
+                 bound(fwd_bytes, e_live * (2 * f + 3 * heads)),
+                 max_err(torch, out1, plain_out))
+
+        # K3's backward, through autograd against autograd through the
+        # plain version, then each kernel alone
+        hp_g = hp.detach().requires_grad_()
+        sc_g = scores.detach().requires_grad_()
+        got = torch.autograd.grad(fused_edge_softmax_aggregate(
+            hp_g, sc_g, es, ed, em, n, impl="cuda", groups=by_dst,
+            by_src=by_src), (hp_g, sc_g), grad_out)
+        with stable_order(torch):
+            plain_graph = fused_edge_softmax_aggregate_ref(hp_g, sc_g, es,
+                                                           ed, em, n)
+            want = torch.autograd.grad(plain_graph, (hp_g, sc_g), grad_out,
+                                       retain_graph=True)
+        ds1 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
+                                                    es, by_dst)
+        ds2 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
+                                                    es, by_dst)
+        dh1 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
+        dh2 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
+        torch.cuda.synchronize()
+        require(torch.equal(ds1, ds2) and torch.equal(dh1, dh2)
+                and torch.equal(ds1, got[1])
+                and torch.equal(dh1.view_as(hp), got[0]),
+                f"K3 backward {label}: two runs differ")
+        check_close(torch, got[1], want[1], 1e-5, 1e-5,
+                    f"K3 backward d scores {label}")
+        check_close(torch, got[0], want[0], 1e-5, 1e-5,
+                    f"K3 backward d h_proj {label}")
+        check_close(torch, torch.sparse.mm(
+            att_t, grad_out.view(n * heads, d_h)).view_as(hp), want[0],
+                    1e-5, 1e-5, f"K3 backward d h_proj {label} library "
+                                "yardstick")
+        bwd_bytes = (idx_bytes + e_live * heads * 4 + 2 * n_dst_live * f * 4
+                     + n_src_rows * f * 4 + e * heads * 4)
+        add_case(results["fused_edge_softmax_aggregate_bwd"],
+                 f"K3 backward d scores {label}",
+                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
+                 cuda_ms(torch, lambda: fused_edge_softmax_aggregate_bwd_cuda(
+                     grad_out, hp, out1, a1, es, by_dst)),
+                 cuda_ms(torch, lambda: torch.autograd.grad(
+                     plain_graph, sc_g, grad_out, retain_graph=True)),
+                 None, bound(bwd_bytes, 2 * f * (e_live + n_dst_live)),
+                 max_err(torch, got[1], want[1]))
+        bwd_h_bytes = (idx_bytes + e_live * heads * 4 + n_dst_live * f * 4
+                       + v * f * 4)
+        add_case(results["fused_edge_softmax_aggregate_bwd_h"],
+                 f"K3 backward d h_proj {label}",
+                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
+                 cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed, by_src,
+                                                         weights=a1)),
+                 cuda_ms(torch, lambda: torch.autograd.grad(
+                     plain_graph, hp_g, grad_out, retain_graph=True)),
+                 cuda_ms(torch, lambda: torch.sparse.mm(
+                     att_t, grad_out.view(n * heads, d_h))),
+                 bound(bwd_h_bytes, 2 * f * e_live),
+                 max_err(torch, got[0], want[0]))
+        del plain_graph, want, got, hp_g, sc_g, att, att_t
+        with torch.no_grad():
+            h = gat_layer(p, h, block, caps[layer],
+                          activation=None if layer == last else F.elu,
+                          impl="ref")
+    return results
+
+
+def add_case(results, label, shapes, kernel_ms, plain_ms, library_ms,
+             bound_pair, err) -> None:
+    case = {"case": label, **shapes, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_pair[0], "bound_by": bound_pair[1],
+            "max_abs_err": err}
+    results.append(case)
+    log(f"[kernels] {json.dumps(case)}")
+
+
+def phase_kernels(torch, g, cfg, params) -> tuple:
+    """K1 (and its backward) and K2 at the paper's batch on the card, with
+    the GraphSAGE weights; returns their cases and the staged batch."""
     from repro_torch.kernels.pack import device_stage
 
     t0 = time.perf_counter()
@@ -316,7 +658,25 @@ def phase_kernels(torch, g, cfg, params) -> dict:
     log(f"[kernels] sampled, pulled and staged one batch of "
         f"{cfg.batch_size} in {time.perf_counter() - t0:.2f} s")
     return layer_cases(torch, "paper", batch, cfg.dst_caps(), params,
-                       general=True)
+                       general=True, backward=True), batch
+
+
+def counted(path: str, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before and
+    read just after; fail unless every kernel of ``path`` launched.
+    Returns (fn's result, the counts)."""
+    from repro_torch.kernels import CUDA_WRAPPERS
+
+    for w in CUDA_WRAPPERS.values():
+        w.launches = 0
+    out = fn()
+    counts = {name: w.launches for name, w in CUDA_WRAPPERS.items()}
+    log(f"[{path}] launches on the main path: {json.dumps(counts)}")
+    needed = {m["wrapper"] for m in KERNELS.values() if path in m["paths"]}
+    missing = sorted(w for w in needed if counts[w] == 0)
+    require(not missing, f"kernels of the {path} path never launched: "
+                         f"{missing}")
+    return out, counts
 
 
 def phase_serving(torch, world, args) -> dict:
@@ -325,20 +685,11 @@ def phase_serving(torch, world, args) -> dict:
     import numpy as np
 
     from repro_torch.api import InferenceServer
-    from repro_torch.kernels import (fused_gather_aggregate_cuda,
-                                     segment_sum_cuda)
     from repro_torch.launch import gnn_serve
 
     g, cfg, params = world
-    wrappers = {"fused_gather_aggregate": fused_gather_aggregate_cuda,
-                "segment_sum": segment_sum_cuda}
-    for w in wrappers.values():
-        w.launches = 0
-    summary = gnn_serve.run_serving(args, world=world)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    log(f"[serving] launches on the main path: {json.dumps(launches)}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the serving path was never launched: {launches}")
+    summary, launches = counted(
+        "serving", lambda: gnn_serve.run_serving(args, world=world))
     require(summary["served"] == summary["requests"],
             f"served {summary['served']} of {summary['requests']} requests")
     log(f"[serving] p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
@@ -446,29 +797,185 @@ def phase_paper(torch, g, cfg, params) -> None:
     log(f"[paper] logits vs impl='ref' max abs err {err:.3e}")
 
 
+def phase_training(torch, arch: str) -> tuple:
+    """One epoch of ``repro_torch.launch.train`` on the card, counted;
+    then the first step against ``impl="ref"``, a second identical run
+    (bitwise-identical parameters), one step's breakdown from the second
+    run's spans, and the path's kernels on the first step's stacked batch.
+    Returns (launch counts, kernel cases)."""
+    import math
+
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    path = f"train_{arch}"
+    args = train.build_parser().parse_args(
+        ["--arch", arch, "--scale", str(SCALE), "--batch-size",
+         str(TRAIN_BATCH), "--epochs", "1", "--device", "cuda"])
+
+    def run():
+        _ds, tr = train.build_trainer(args)
+        params0 = tree_map(lambda p: p.clone(), tr.params)
+        stack, first = tr._stack, []
+
+        def stack_keeping_first(batches):
+            out = stack(batches)
+            if not first:
+                first.append(out)
+            return out
+
+        tr._stack = stack_keeping_first
+        t0 = time.perf_counter()
+        summary = train.run_gnn(args, trainer=tr)
+        return tr, params0, first[0], summary, time.perf_counter() - t0
+
+    (tr, params0, first, summary, wall), launches = counted(path, run)
+    losses = summary["epochs"][0]["losses"]
+    require(len(losses) == tr.batches_per_epoch >= 1
+            and all(math.isfinite(x) for x in losses)
+            and 0.0 <= summary["val_acc"] <= 1.0,
+            f"{path}: losses {losses}, val_acc {summary['val_acc']}")
+    log(f"[{path}] {arch} in {tr.cfg.in_dim}, hidden {tr.cfg.hidden_dim}, "
+        f"{tr.cfg.num_classes} classes, fanouts {list(tr.cfg.fanouts)}, "
+        f"{tr.num_trainers} trainers x batch {tr.cfg.batch_size}: "
+        f"{len(losses)} steps, losses {losses}, val_acc "
+        f"{summary['val_acc']:.4f}, epoch {summary['epochs'][0]['time_s']:.3f}"
+        f" s, run with evaluation {wall:.3f} s")
+
+    # the first step against the plain versions, on the same card
+    loss, _acc, grads = tr.loss_and_grads(first, params=params0)
+    ref_loss, _ref_acc, ref_grads = tr.loss_and_grads(first, params=params0,
+                                                      impl="ref")
+    require(float(loss) == losses[0],
+            f"{path}: the first step's loss recomputed ({float(loss)!r}) "
+            f"differs from the run's ({losses[0]!r})")
+    check_close(torch, loss, ref_loss, 1e-4, 1e-5, f"{path} first-step loss")
+    errs = []
+    for i, (a, b) in enumerate(zip(tree_leaves(grads),
+                                   tree_leaves(ref_grads))):
+        check_close(torch, a, b, 1e-4, 1e-5, f"{path} first-step grad {i}")
+        errs.append(max_err(torch, a, b))
+    log(f"[{path}] first step vs impl='ref': loss {float(loss):.6f} vs "
+        f"{float(ref_loss):.6f}, max grad abs err {max(errs):.3e} over "
+        f"{len(errs)} tensors")
+
+    # a second identical run ends with the same bytes
+    tr2, _, _, summary2, _ = run()
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.params),
+                                                 tree_leaves(tr2.params)))
+    require(same and summary2["epochs"][0]["losses"] == losses,
+            f"{path}: two identical runs ended with different parameters "
+            f"or losses")
+    log(f"[{path}] a second identical run: bitwise-identical parameters "
+        f"({sum(p.numel() for p in tree_leaves(tr.params))} values) and "
+        f"losses")
+
+    steps = tr2.global_step
+    spans = {k: v / steps for k, v in tr2.spans_ms().items()}
+    host = {k: v for k, v in spans.items() if not k.startswith("device_")}
+    total = sum(host.values())
+    log(f"[breakdown] {path}, one step of {tr2.num_trainers} x "
+        f"{tr2.cfg.batch_size} seeds, mean of the second run's {steps} "
+        f"steps (host clock): "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                    for k, v in host.items())
+        + "; on the card (CUDA events): "
+        + ", ".join(f"{k[7:]} {v:.3f} ms" for k, v in spans.items()
+                    if k.startswith("device_")))
+    profile_step(torch, path, tr2, first)
+    caps = tr.cfg.dst_caps()
+    if arch == "gat":
+        cases = gat_cases(torch, "train", first, caps, params0)
+    else:
+        cases = layer_cases(torch, "train", first, caps, params0,
+                            backward=True)
+    del tr, tr2, first, grads, ref_grads
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
+def profile_step(torch, path: str, tr, stacked) -> None:
+    """One more training step on ``stacked`` under ``torch.profiler``: the
+    card's busy time (kernels and copies) against the step's wall time,
+    and the operators that take the most host and device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.train_step(stacked)                       # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(stacked)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    def on_card(e):
+        return e.device_type == DeviceType.CUDA
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+    # kernels and copies run on one stream, so their times add up
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if on_card(e)) / 1e3
+    log(f"[profile] {path}: one step (stacked batch already staged) "
+        f"{wall_ms:.3f} ms wall, the card busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%; idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+    events = prof.key_averages()
+    top_dev = sorted((e for e in events if on_card(e)), key=dev_ms,
+                     reverse=True)[:10]
+    log(f"[profile] {path}: most device time: " + "; ".join(
+        f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top_dev))
+    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:12]
+    log(f"[profile] {path}: most host time (self): " + "; ".join(
+        f"{e.key[:60]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}"
+        for e in top_cpu))
+
+
 def _sums(cases: list) -> dict:
+    """Times summed over the cases the main path runs; ``library_ms`` is
+    null where no single PyTorch call computes the same function."""
+    cases = [c for c in cases if c.get("on_path", True)]
+    libs = [c["library_ms"] for c in cases]
     return {"max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": sum(c["kernel_ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),
             "bound_ms": sum(c["bound_ms"] for c in cases),
             "bound_by": ("bytes" if all(c["bound_by"] == "bytes"
                                         for c in cases) else "operations"),
-            "library_ms": sum(c["library_ms"] for c in cases)}
+            "library_ms": None if None in libs else sum(libs)}
 
 
-def report(tick: dict, paper: dict, launches: dict) -> dict:
-    """Per kernel: its times summed over the 3 layers of one full serving
-    tick at the gnn_serve defaults (the main path's shapes), and the same
-    sums for one batch-1000 forward under ``paper_batch``."""
+SHAPES = {
+    "fused_gather_aggregate": "sum over the 3 layers of one serving tick "
+                              "(8 chunks x 8 seeds)",
+    "segment_sum": "sum over the 3 layers of one serving tick (8 chunks x "
+                   "8 seeds), as _degrees (F=1)",
+    "fused_gather_aggregate_bwd": "sum over layers 1 and 2 of one "
+                                  "GraphSAGE training step (4 trainers x "
+                                  "128 seeds)",
+}
+GAT_SHAPES = ("sum over the 3 layers of one GAT training step (4 trainers "
+              "x 128 seeds)")
+
+
+def report(primary: dict, paper: dict, launches: dict) -> dict:
+    """Per kernel: its times summed over the layers of the main path's
+    shapes (a serving tick at the gnn_serve defaults, or a training step
+    of launch.train), the same sums for one batch-1000 forward (and
+    backward) under ``paper_batch``, and its launches on each main path."""
     out = []
     for name, meta in KERNELS.items():
+        by_path = {p: launches[p][meta["wrapper"]] for p in meta["paths"]}
         out.append({"name": name, "route": "cuda", "status": "ok",
                     "source": meta["source"], "replaces": meta["replaces"],
-                    "launches": launches[name], **_sums(tick[name]),
-                    "shapes": "sum over the 3 layers of one serving tick "
-                              "(8 chunks x 8 seeds)" + (
-                                  ", as _degrees (F=1)"
-                                  if name == "segment_sum" else ""),
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path, **_sums(primary[name]),
+                    "shapes": SHAPES.get(name, GAT_SHAPES),
                     "paper_batch": _sums(paper[name])})
     return {"kernels": out}
 
@@ -480,7 +987,9 @@ def main() -> int:
     smi = phase_device(torch)
     require((ROOT / "src" / "repro_torch").is_dir(),
             "src/repro_torch is missing: run from a checkout of the repo")
+    from repro_torch.configs import get_config
     from repro_torch.launch import gnn_serve
+    from repro_torch.models.gnn import init_gnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -498,13 +1007,29 @@ def main() -> int:
         f"classes, fanouts {list(cfg.fanouts)}")
 
     paper_cfg = dataclasses.replace(cfg, batch_size=PAPER_BATCH)
-    paper = phase_kernels(torch, g, paper_cfg, params)
-    launches = phase_serving(torch, world, args)
-    tick = layer_cases(torch, "tick", phase_breakdown(torch, world, args),
-                       cfg.dst_caps(), params)
-    phase_paper(torch, g, cfg, params)
+    paper, paper_batch = phase_kernels(torch, g, paper_cfg, params)
+    gat_cfg = dataclasses.replace(get_config("gat"), in_dim=cfg.in_dim,
+                                  num_classes=cfg.num_classes,
+                                  batch_size=PAPER_BATCH)
+    gat_params = init_gnn(gat_cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    paper.update(gat_cases(torch, "paper", paper_batch, gat_cfg.dst_caps(),
+                           gat_params))
+    del paper_batch, gat_params
+    torch.cuda.empty_cache()
 
-    print(json.dumps(report(tick, paper, launches)))
+    launches = {"serving": phase_serving(torch, world, args)}
+    primary = layer_cases(torch, "tick", phase_breakdown(torch, world, args),
+                          cfg.dst_caps(), params)
+    phase_paper(torch, g, cfg, params)
+    launches["train_gat"], gat_train = phase_training(torch, "gat")
+    launches["train_graphsage"], sage_train = phase_training(torch,
+                                                             "graphsage")
+    primary.update(gat_train)
+    primary["fused_gather_aggregate_bwd"] = \
+        sage_train["fused_gather_aggregate_bwd"]
+
+    print(json.dumps(report(primary, paper, launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ kernel on a ported path is a hand-written CUDA kernel for Hopper
 (``repro_torch/csrc``). Entry points run on the card unless the caller
 asks for ``device="cpu"``.
 
-The public serving surface is ``repro_torch.api`` (``DistGraph``,
-``InferenceServer``); its names are re-exported here lazily.
+The public surface is ``repro_torch.api`` (``DistGraph``,
+``NodeDataLoader``, ``DistGNNTrainer``, ``InferenceServer``); its names
+are re-exported here lazily.
 """
-__all__ = ["DistGraph", "DistTensor", "InferenceServer", "PredictionHandle",
+__all__ = ["DistGraph", "DistTensor", "NodeDataLoader", "DistGNNTrainer",
+           "TrainJobConfig", "InferenceServer", "PredictionHandle",
            "ServerOverloaded", "DeadlineExceeded"]
 
 

@@ -1,5 +1,6 @@
 """``repro_torch.api`` -- the ported public surface: the DGL-style
-:class:`DistGraph` and the online :class:`InferenceServer`.
+:class:`DistGraph` and :class:`NodeDataLoader`, the synchronous
+:class:`DistGNNTrainer` and the online :class:`InferenceServer`.
 
     from repro_torch.api import DistGraph, InferenceServer
 
@@ -7,20 +8,31 @@
     with InferenceServer(g, cfg, params, device="cuda") as srv:
         logits = srv.predict([0, 1, 2])
 
-The data loaders, the trainer, ``DistEmbedding`` and
-``offline_embeddings`` are not ported yet (ROADMAP queue A).
+The edge loader, ``DistEmbedding`` and ``offline_embeddings`` are not
+ported yet (ROADMAP queue A).
 """
 from ..core.kvstore.faults import (FaultInjector, OwnerDownWindow,
                                    OwnerUnavailable, RPCRetriesExhausted,
                                    TrainerDeath, TransientRPCError)
+from .dataloader import NodeBatch, NodeDataLoader
 from .dist_graph import DistGraph, DistTensor
 from .inference import (DeadlineExceeded, InferenceServer, PredictionHandle,
                         ServerOverloaded)
 
 __all__ = [
-    "DistGraph", "DistTensor",
+    "DistGraph", "DistTensor", "NodeBatch", "NodeDataLoader",
+    "DistGNNTrainer", "TrainJobConfig",
     "InferenceServer", "PredictionHandle",
     "ServerOverloaded", "DeadlineExceeded",
     "FaultInjector", "TransientRPCError", "RPCRetriesExhausted",
     "TrainerDeath", "OwnerDownWindow", "OwnerUnavailable",
 ]
+
+
+def __getattr__(name: str):
+    # the trainer imports this package's loaders, so it is imported on
+    # first use rather than here
+    if name in ("DistGNNTrainer", "TrainJobConfig"):
+        from ..training import trainer
+        return getattr(trainer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

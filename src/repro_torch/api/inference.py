@@ -32,17 +32,11 @@ import numpy as np
 import torch
 
 from ..core.kvstore.cache import CacheConfig, FeatureCache
+from ..core.pipeline.minibatch import host_blocks
 from ..core.sampler import DistributedSampler, sample_ego_networks
-from ..kernels.pack import device_stage
+from ..kernels.pack import device_stage, stack_trees
 from ..models.gnn import GNNConfig, apply_gnn, params_to
 from .dist_graph import DistGraph
-
-
-def _model_blocks(mb) -> List[dict]:
-    """The static per-layer arrays the forward consumes."""
-    return [dict(edge_src=b.edge_src, edge_dst=b.edge_dst,
-                 edge_mask=b.edge_mask, edge_types=b.edge_types)
-            for b in mb.blocks]
 
 
 def resolve_device(device) -> torch.device:
@@ -57,16 +51,6 @@ def resolve_device(device) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
-
-
-def _stack(trees: list):
-    """Leaf-wise ``np.stack`` of identically structured host trees."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, (list, tuple)):
-        return [_stack([t[i] for t in trees]) for i in range(len(first))]
-    return np.stack(trees)
 
 
 class ServerOverloaded(RuntimeError):
@@ -285,7 +269,7 @@ class InferenceServer:
                 if self._pull_feats(mb):
                     handle.degraded = True
                 tree = {"input_feats": mb.input_feats,
-                        "blocks": _model_blocks(mb)}
+                        "blocks": host_blocks(mb)}
                 entries.append((handle, b, tree, int(mb.seed_mask.sum())))
                 t2 = time.perf_counter()
                 sample_s += t1 - t0
@@ -387,7 +371,7 @@ class InferenceServer:
             # live chunk's bytes and every tick has the same shapes
             trees = trees + [trees[0]] * (self.capacity - len(trees))
             t0 = time.perf_counter()
-            host_tree = _stack(trees)
+            host_tree = stack_trees(trees)
             with self._lock:
                 self.spans_s["stack"] += time.perf_counter() - t0
             logits = self._forward(host_tree)

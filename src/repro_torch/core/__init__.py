@@ -1,5 +1,5 @@
 """DistDGLv2's core host plane, copied from ``repro.core``: hierarchical
-multi-constraint partitioning, the distributed KVStore and distributed
-owner-compute neighbor sampling. The asynchronous mini-batch pipeline is
-not ported yet (ROADMAP queue A)."""
-from . import kvstore, partition, sampler  # noqa: F401
+multi-constraint partitioning, the distributed KVStore, distributed
+owner-compute neighbor sampling and the asynchronous node mini-batch
+pipeline (its device stage on the port's packed staging)."""
+from . import kvstore, partition, pipeline, sampler  # noqa: F401

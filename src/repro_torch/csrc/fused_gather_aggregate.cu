@@ -44,34 +44,12 @@
 // scale-14 batch of 1000: E = 990,000 slots, 54,221 live, 6,927 referenced
 // rows, 66,000 x 100 out) that is 30.6 MB, 9.1 us; chip_smoke.py computes
 // it from each run's data and times the kernel.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "vec.cuh"
 
 namespace {
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  using type = float;
-  static __device__ __forceinline__ float zero() { return 0.0f; }
-  static __device__ __forceinline__ void add(float& a, float b) { a += b; }
-};
-template <>
-struct Vec<4> {
-  using type = float4;
-  static __device__ __forceinline__ float4 zero() {
-    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  static __device__ __forceinline__ void add(float4& a, float4 b) {
-    a.x += b.x;
-    a.y += b.y;
-    a.z += b.z;
-    a.w += b.w;
-  }
-};
-
-constexpr int kWarpsPerBlock = 4;
+using repro_torch::kWarpsPerBlock;
+using repro_torch::Vec;
 
 template <int VEC>
 __global__ void fused_gather_aggregate_kernel(

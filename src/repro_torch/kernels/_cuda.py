@@ -5,9 +5,10 @@ Every ``repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 loaded with :mod:`ctypes`. The build runs at first use, never at import
 (this module imports nothing that needs a card or a compiler), into the
 checkout's ``build/kernels/``; each library's file name carries a hash of
-its source and flags, so an edited source builds anew and an unchanged one
-is loaded as it is. :func:`build` starts one ``nvcc`` per source, all at
-once, and waits for all of them.
+its source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source builds anew and an unchanged one is loaded as it is.
+:func:`build` starts one ``nvcc`` per source, all at once, and waits for
+all of them.
 
 A build that fails raises with the compiler's output. Nothing falls back
 to the plain PyTorch versions.
@@ -22,16 +23,20 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("segment_sum", "fused_gather_aggregate")
+KERNELS = ("segment_sum", "fused_gather_aggregate", "src_scatter",
+           "edge_softmax", "fused_edge_softmax_aggregate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_symbols: Dict[tuple, Callable] = {}
 
 
 def nvcc_path() -> str:
@@ -54,6 +59,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -109,6 +116,60 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def symbol(name: str, sym: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``sym`` of kernel library ``name`` (built on first
+    use), with its ``argtypes`` set and an ``int`` (``cudaError_t``)
+    result."""
+    key = (name, sym)
+    fn = _symbols.get(key)
+    if fn is None:
+        fn = getattr(load(name), sym)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _symbols[key] = fn
+    return fn
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the ``void*`` a C entry
+    point takes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda_f32(what: str, **tensors) -> None:
+    """Raise unless every tensor is a contiguous float32 tensor on the
+    card, all on one device."""
+    devices = set()
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what} needs CUDA tensors, got {name} on "
+                             f"{t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes float32, got {name} of "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"{what}: tensors on several devices {devices}")
+
+
+def check_index(what: str, device: torch.device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous 1-D int32 tensor on
+    ``device``."""
+    for name, t in tensors.items():
+        if (t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(f"{what}: {name} must be a contiguous (E,) "
+                             f"int32 tensor on {device}")
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (float4
+    columns need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check(err: int, what: str) -> None:

@@ -15,24 +15,14 @@ import ctypes
 import torch
 
 from .. import _cuda
-from ..dst_groups import DstGroups
+from ..dst_groups import EdgeGroups
 
-_fns: dict = {}
-
-
-def _fn():
-    fn = _fns.get("f32")
-    if fn is None:
-        fn = _cuda.load("fused_gather_aggregate").fused_gather_aggregate_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns["f32"] = fn
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
+    ctypes.c_int, ctypes.c_void_p]
 
 
 def fused_gather_aggregate_cuda(h_src: torch.Tensor, edge_src: torch.Tensor,
-                                groups: DstGroups) -> torch.Tensor:
+                                groups: EdgeGroups) -> torch.Tensor:
     """h_src: (V, F) f32 on the card; edge_src: (E,) int32 -> (num_dst, F)
     f32, each destination's live source rows summed in ``groups``' order.
     ``edge_src`` must index rows of ``h_src`` (the sampler guarantees it)."""
@@ -55,15 +45,17 @@ def fused_gather_aggregate_cuda(h_src: torch.Tensor, edge_src: torch.Tensor,
         raise ValueError("groups must be built on h_src's device from the "
                          "same E edges")
     f = h_src.shape[1]
-    out = torch.empty((groups.num_dst, f), dtype=torch.float32,
+    out = torch.empty((groups.num_groups, f), dtype=torch.float32,
                       device=h_src.device)
     vec4 = int(f % 4 == 0 and h_src.data_ptr() % 16 == 0
                and out.data_ptr() % 16 == 0)
+    fn = _cuda.symbol("fused_gather_aggregate", "fused_gather_aggregate_f32",
+                      _ARGTYPES)
     with torch.cuda.device(h_src.device):
-        err = _fn()(h_src.data_ptr(), edge_src.data_ptr(),
-                    groups.order.data_ptr(), groups.offsets.data_ptr(),
-                    out.data_ptr(), groups.num_dst, f, vec4,
-                    torch.cuda.current_stream().cuda_stream)
+        err = fn(h_src.data_ptr(), edge_src.data_ptr(),
+                 groups.order.data_ptr(), groups.offsets.data_ptr(),
+                 out.data_ptr(), groups.num_groups, f, vec4,
+                 _cuda.stream_ptr(h_src.device))
     fused_gather_aggregate_cuda.launches += 1
     _cuda.check(err, "fused_gather_aggregate")
     return out

@@ -125,6 +125,17 @@ def unflatten_tree(flat: Dict[str, Any], none_paths: Tuple[str, ...] = ()
     return rebuild(root)
 
 
+def stack_trees(trees: list) -> Any:
+    """Leaf-wise ``np.stack`` of identically structured host trees: the
+    host side of staging several batches on one leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [stack_trees([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
 @functools.lru_cache(maxsize=256)
 def _spec_cache(fields, none_paths) -> PackSpec:
     # padded-MFG shapes are static across a run, so every batch of a run

@@ -1,13 +1,14 @@
 """Public op: masked segment-sum (K2) with the ``impl=`` switch of
 :mod:`repro_torch.kernels.impl`: the CUDA kernel on a CUDA tensor, the
-plain version on a CPU tensor."""
+plain version on a CPU tensor. Also :func:`gather_edges`, the keyed row
+gather whose backward is K2."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from ..dst_groups import DstGroups, dst_groups
+from ..dst_groups import EdgeGroups, dst_groups
 from ..impl import resolve_impl
 from .kernel import segment_sum_cuda
 from .ref import segment_sum_ref
@@ -15,7 +16,7 @@ from .ref import segment_sum_ref
 
 def segment_sum(msg: torch.Tensor, edge_dst: torch.Tensor,
                 edge_mask: torch.Tensor, num_dst: int, impl: str = "auto",
-                groups: Optional[DstGroups] = None) -> torch.Tensor:
+                groups: Optional[EdgeGroups] = None) -> torch.Tensor:
     """``groups`` lets a layer share one destination-grouped order between
     K1 and K2; it is built here when not given."""
     if resolve_impl(impl, msg) == "ref":
@@ -23,3 +24,27 @@ def segment_sum(msg: torch.Tensor, edge_dst: torch.Tensor,
     if groups is None:
         groups = dst_groups(edge_dst, edge_mask, num_dst)
     return segment_sum_cuda(msg, groups)
+
+
+class _GatherEdges(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keys, edge_mask, groups):
+        ctx.groups = groups
+        return x[keys.long()].masked_fill(~edge_mask[:, None], 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        grad_x = segment_sum_cuda(grad.contiguous(), ctx.groups)
+        return grad_x, None, None, None
+
+
+def gather_edges(x: torch.Tensor, keys: torch.Tensor,
+                 edge_mask: torch.Tensor, groups: EdgeGroups) -> torch.Tensor:
+    """x: (N, F) on the card; keys: (E,) -> (E, F), ``x[keys]`` on live
+    edges and 0 on padded ones. Its gradient, ``grad_x[k] = sum of the live
+    edges' rows keyed k``, is K2 over ``groups`` (the edges grouped by the
+    same keys), in each group's edge order: the deterministic stand-in for
+    the float-atomic ``index_put_`` behind ``x[keys]``'s own backward."""
+    return _GatherEdges.apply(x, keys, edge_mask, groups)

@@ -23,7 +23,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.gnn_serve")
     ap.add_argument("--arch", default="graphsage",
                     choices=["graphsage", "gat", "rgcn"],
-                    help="GNN architecture to serve (graphsage is ported)")
+                    help="GNN architecture to serve (graphsage and gat are "
+                         "ported)")
     ap.add_argument("--dataset", default="product-sim",
                     help="named synthetic dataset (repro_torch.graph.datasets)")
     ap.add_argument("--scale", type=int, default=10,

@@ -13,13 +13,21 @@ d_in) and (S, cap_edge) block arrays give (S, cap_dst, d_out). The S
 blocks are offset into one flat block, so each kernel launches once for
 all of them, and the dense products run as one batched product whose S
 items are computed alike: a slot's rows depend on nothing but its own
-chunk.
+chunk. The trainer stacks its T trainers' batches on the same axis.
+
+On the card every reduction over edges, forward and backward, is a kernel
+that sums in a fixed order, so two runs of a training step give the same
+bytes.
 """
 from __future__ import annotations
 
 import torch
 
-from ...kernels import dst_groups, fused_gather_aggregate, segment_sum
+import torch.nn.functional as F
+
+from ...kernels import (dst_groups, fused_edge_softmax_aggregate,
+                        fused_gather_aggregate, gather_edges, segment_sum,
+                        src_groups)
 from ...kernels.impl import resolve_impl
 
 
@@ -47,6 +55,13 @@ def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x, w.expand(x.shape[0], -1, -1))
 
 
+def _head_dot(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(S, N, H, d_h) . (H, d_h) -> (S, N, H): each head's dot product, as
+    a product and a sum over d_h, so that every row is reduced alike
+    whatever the stack size (an ``einsum`` picks its reduction by shape)."""
+    return (x * a).sum(-1)
+
+
 def sage_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
                activation=torch.relu, impl: str = "auto") -> torch.Tensor:
     """GraphSAGE mean aggregator: act(W_self h_v + W_neigh mean_u h_u)."""
@@ -66,6 +81,56 @@ def sage_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
     out = (_dense(h_self, params["w_self"])
            + _dense(agg.view(s, num_dst, f), params["w_neigh"])
            + params["b"])
+    if activation is not None:
+        out = activation(out)
+    return out if stacked else out[0]
+
+
+def gat_attention_inputs(params, h_src: torch.Tensor, block: dict,
+                         num_dst: int):
+    """The GAT layer up to its attention tail, with the stack axis S (1
+    without one) flattened into the rows: (h_proj (S*V, H, d_h), el
+    (S*V, H), er (S*num_dst, H), edge_src, edge_dst, edge_mask (S*E,))."""
+    h = h_src if h_src.dim() == 3 else h_src[None]
+    s, v, f = h.shape
+    w = params["w"]
+    heads, d_h = w.shape[1], w.shape[2]
+    edge_src, edge_dst, edge_mask = _flat_edges(block, s, v, num_dst)
+    h_proj = _dense(h, w.reshape(f, heads * d_h)).view(s, v, heads, d_h)
+    el = _head_dot(h_proj, params["a_l"]).reshape(s * v, heads)
+    er = _head_dot(h_proj[:, :num_dst], params["a_r"]).reshape(
+        s * num_dst, heads)
+    return (h_proj.view(s * v, heads, d_h), el, er, edge_src, edge_dst,
+            edge_mask)
+
+
+def gat_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
+              activation=F.elu, impl: str = "auto",
+              negative_slope: float = 0.2) -> torch.Tensor:
+    """GAT layer, multi-head concat. params: w (d_in, H, d_h), a_l/a_r
+    (H, d_h), b (H*d_h,)."""
+    stacked = h_src.dim() == 3
+    s = h_src.shape[0] if stacked else 1
+    h_proj, el, er, edge_src, edge_dst, edge_mask = gat_attention_inputs(
+        params, h_src, block, num_dst)
+    n = s * num_dst
+    if resolve_impl(impl, h_src) == "cuda":
+        # one destination order for the scores' gather, K4 and K3, and one
+        # source order for the backward reductions into source rows
+        by_dst = dst_groups(edge_dst, edge_mask, n)
+        by_src = (src_groups(edge_src, edge_mask, h_proj.shape[0])
+                  if torch.is_grad_enabled() else None)
+        scores = (gather_edges(el, edge_src, edge_mask, by_src)
+                  + gather_edges(er, edge_dst, edge_mask, by_dst))
+    else:
+        by_dst = by_src = None
+        scores = el[edge_src.long()] + er[edge_dst.long()]
+    scores = F.leaky_relu(scores, negative_slope)
+    # fused softmax -> weighted gather -> aggregate (attention tail)
+    out = fused_edge_softmax_aggregate(h_proj, scores, edge_src, edge_dst,
+                                       edge_mask, n, impl=impl,
+                                       groups=by_dst, by_src=by_src)
+    out = out.view(s, num_dst, -1) + params["b"]
     if activation is not None:
         out = activation(out)
     return out if stacked else out[0]

@@ -1,18 +1,21 @@
 """GNN models on padded MFG mini-batches, the port of
-``repro/models/gnn/models.py``. This slice ports GraphSAGE node
-classification for serving; GAT and RGCN raise ``NotImplementedError``
-naming their ROADMAP item.
+``repro/models/gnn/models.py``: GraphSAGE and GAT node classification with
+its loss and accuracy. RGCN raises ``NotImplementedError`` naming its
+ROADMAP item; the link-prediction heads wait for theirs.
 
 Models are functional: ``init_gnn(cfg, generator) -> params`` and
 ``apply_gnn(cfg, params, batch) -> logits``, with ``params`` the
-reference's tree (``{"layers": [{"w_self", "w_neigh", "b"}, ...]}``) of
-tensors on one device. ``batch`` is the staged dict
+reference's tree of tensors on one device
+(``{"layers": [{"w_self", "w_neigh", "b"}, ...]}`` for GraphSAGE,
+``{"layers": [{"w", "a_l", "a_r", "b"}, ...], "head"?}`` for GAT).
+``batch`` is the staged dict
 
     {"input_feats": (cap_src_0, F), "blocks": [block dicts...]}
 
 optionally with a leading stack axis on every array (micro-batched
-serving). The static per-layer dst capacities come from the sampler's
-``capacities`` (batch_size, fanouts), the same numbers the padding used.
+serving, and the trainers' stacked batches in training). The static
+per-layer dst capacities come from the sampler's ``capacities``
+(batch_size, fanouts), the same numbers the padding used.
 """
 from __future__ import annotations
 
@@ -21,12 +24,13 @@ from typing import Any, List, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...core.sampler.mfg import Fanout, capacities
-from .layers import sage_layer
+from .layers import _dense, gat_layer, sage_layer
 
+PORTED = ("graphsage", "gat")
 NOT_PORTED = {
-    "gat": "ROADMAP queue A item 3 (GAT, with kernels K3 and K4)",
     "rgcn": "ROADMAP queue A item 4 (RGCN and the typed path)",
 }
 
@@ -35,18 +39,19 @@ def _check_ported(arch: str) -> None:
     if arch in NOT_PORTED:
         raise NotImplementedError(f"arch {arch!r} is not ported to "
                                   f"repro_torch yet: {NOT_PORTED[arch]}")
-    if arch != "graphsage":
+    if arch not in PORTED:
         raise ValueError(f"unknown GNN arch {arch!r}")
 
 
 @dataclasses.dataclass
 class GNNConfig:
-    arch: str                       # graphsage (gat | rgcn not ported yet)
+    arch: str                       # graphsage | gat (rgcn not ported yet)
     in_dim: int
     hidden_dim: int
     num_classes: int
     fanouts: Sequence[Fanout]       # input-layer first
     batch_size: int
+    num_heads: int = 2              # GAT (paper: 2 heads)
     impl: str = "auto"             # kernel dispatch (repro_torch.kernels.impl)
 
     @property
@@ -76,11 +81,23 @@ def init_gnn(cfg: GNNConfig, generator: torch.Generator,
     d_in = cfg.in_dim
     for l in range(cfg.num_layers):
         d_out = cfg.num_classes if l == cfg.num_layers - 1 else cfg.hidden_dim
-        layers.append({"w_self": _glorot(generator, (d_in, d_out)),
-                       "w_neigh": _glorot(generator, (d_in, d_out)),
-                       "b": torch.zeros((d_out,))})
-        d_in = d_out
-    return params_to({"layers": layers}, device)
+        if cfg.arch == "graphsage":
+            layers.append({"w_self": _glorot(generator, (d_in, d_out)),
+                           "w_neigh": _glorot(generator, (d_in, d_out)),
+                           "b": torch.zeros((d_out,))})
+            d_in = d_out
+        else:
+            d_h = max(d_out // cfg.num_heads, 1)
+            layers.append({
+                "w": _glorot(generator, (d_in, cfg.num_heads, d_h)),
+                "a_l": _glorot(generator, (cfg.num_heads, d_h)),
+                "a_r": _glorot(generator, (cfg.num_heads, d_h)),
+                "b": torch.zeros((cfg.num_heads * d_h,))})
+            d_in = cfg.num_heads * d_h
+    params = {"layers": layers}
+    if cfg.arch == "gat" and d_in != cfg.num_classes:
+        params["head"] = _glorot(generator, (d_in, cfg.num_classes))
+    return params_to(params, device)
 
 
 def params_to(tree: Any, device) -> Any:
@@ -107,10 +124,15 @@ def apply_gnn_layer(cfg: GNNConfig, params: dict, layer: int,
                     h: torch.Tensor, block: dict,
                     num_dst: int) -> torch.Tensor:
     """One layer of the forward pass: (cap_src, d_in) -> (num_dst, d_out),
-    or the same with a leading stack axis."""
+    or the same with a leading stack axis. The last layer has no
+    activation; the others ReLU (GraphSAGE) or ELU (GAT)."""
     _check_ported(cfg.arch)
     last = layer == cfg.num_layers - 1
-    return sage_layer(params["layers"][layer], h, block, num_dst,
+    p = params["layers"][layer]
+    if cfg.arch == "gat":
+        return gat_layer(p, h, block, num_dst,
+                         activation=None if last else F.elu, impl=cfg.impl)
+    return sage_layer(p, h, block, num_dst,
                       activation=None if last else torch.relu,
                       impl=cfg.impl)
 
@@ -122,4 +144,30 @@ def apply_gnn(cfg: GNNConfig, params: dict, batch: dict) -> torch.Tensor:
     dst_caps = cfg.dst_caps()
     for l, block in enumerate(batch["blocks"]):
         h = apply_gnn_layer(cfg, params, l, h, block, dst_caps[l])
+    if "head" in params:
+        out = _dense(h if h.dim() == 3 else h[None], params["head"])
+        h = out if h.dim() == 3 else out[0]
     return h
+
+
+# ---------------------------------------------------------------------------
+# heads / losses
+# ---------------------------------------------------------------------------
+
+def nc_loss(logits: torch.Tensor, labels: torch.Tensor,
+            seed_mask: torch.Tensor) -> torch.Tensor:
+    """Masked cross-entropy over real (non-padded) seeds: logits (..., B,
+    C), labels and seed_mask (..., B) -> one loss per leading index."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    m = seed_mask.to(torch.float32)
+    return (nll * m).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
+
+
+def nc_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                seed_mask: torch.Tensor) -> torch.Tensor:
+    """Masked accuracy over real seeds, one per leading index."""
+    pred = logits.argmax(dim=-1)
+    m = seed_mask.to(torch.float32)
+    return ((pred == labels.long()) * m).sum(-1) / torch.clamp_min(
+        m.sum(-1), 1.0)

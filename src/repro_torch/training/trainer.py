@@ -1,0 +1,343 @@
+"""Distributed synchronous mini-batch GNN training (§5.1, §5.6), the port of
+``repro/training/trainer.py``'s node-classification branch.
+
+``DistGNNTrainer`` composes the port's public surface: one
+:class:`~repro_torch.api.DistGraph` world (partition book + KVStore),
+per-trainer :class:`~repro_torch.api.NodeDataLoader` instances over the
+async pipeline, and one *synchronous* AdamW step per iteration across all
+trainers (data parallelism).
+
+The reference ``vmap``s the loss over the T trainers' stacked batches and
+takes the mean, which is exactly synchronous SGD. The port stacks the T
+batches on the leading axis the layers already take, so each kernel
+launches once per layer for all trainers; it computes one loss per slot,
+averages them, and calls ``backward`` once. Accuracy is the mean of the
+per-slot accuracies, as in the reference. The step runs on the card unless
+the trainer is built with ``device="cpu"``.
+
+The constructor options are the reference's Fig. 14 ablation axes
+(``partition_method``, ``use_level2``, ``sync``, ``non_stop``). Link
+prediction, checkpoints and recovery, fault injection and typed graphs
+are not ported yet: each raises ``NotImplementedError`` naming its
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..api.dataloader import NodeDataLoader
+from ..api.dist_graph import DistGraph
+from ..api.inference import resolve_device
+from ..core.kvstore import CacheConfig, FaultInjector, NetworkModel
+from ..graph.datasets import GraphDataset
+from ..kernels.pack import device_stage, stack_trees
+from ..models.gnn import (GNNConfig, apply_gnn, init_gnn, nc_accuracy,
+                          nc_loss, params_to)
+from ..models.gnn.models import _check_ported
+from ..optim import adamw_init, adamw_update
+from ..optim.optimizers import tree_leaves, tree_map
+
+TASKS = ("node_classification", "link_prediction")
+# host-clock spans of a step, and on the card the device's time between
+# the same marks (CUDA events)
+HOST_SPANS = ("wait_loaders", "stack_stage", "forward", "backward",
+              "optimizer", "read_loss")
+DEVICE_SPANS = ("device_forward", "device_backward", "device_optimizer")
+
+
+@dataclasses.dataclass
+class TrainJobConfig:
+    num_machines: int = 2
+    trainers_per_machine: int = 2
+    partition_method: str = "metis"      # "metis" | "random" (Euler baseline)
+    use_level2: bool = True              # 2-level partition seed split
+    sync: bool = False                   # disable the async pipeline
+    non_stop: bool = True                # non-stop pipeline across epochs
+    lr: float = 3e-3
+    network: Optional[NetworkModel] = None
+    pipeline_depths: Optional[dict] = None
+    cache: Optional[CacheConfig] = None  # per-trainer hot-vertex cache
+    # sampling-stage worker pool per trainer (§5.5's multiple sampling
+    # workers); batches are byte-identical for any value
+    sample_workers: int = 1
+    # kernel implementation for the model's aggregations (GNNConfig.impl):
+    # None keeps the model config's own choice ("auto": the CUDA kernels
+    # on the card, the plain versions on the CPU); "ref" / "cuda" force
+    impl: Optional[str] = None
+    task: str = "node_classification"
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 0
+    fault_injector: Optional[FaultInjector] = None
+    seed: int = 0
+    # r-way replica placement for the KVStore feature plane
+    replication: int = 1
+    max_rpc_retries: int = 8
+    hedge_ms: Optional[float] = None
+
+    def __post_init__(self):
+        if self.task not in TASKS:
+            raise ValueError(f"unknown task {self.task!r}; have {TASKS}")
+        if self.task == "link_prediction":
+            raise NotImplementedError(
+                "link prediction is not ported to repro_torch yet: ROADMAP "
+                "queue A item 5")
+        if self.checkpoint_dir is not None or self.checkpoint_interval:
+            raise NotImplementedError(
+                "checkpoints are not ported to repro_torch yet: ROADMAP "
+                "queue A item 7 (checkpoints and recovery)")
+        if self.fault_injector is not None:
+            raise NotImplementedError(
+                "fault injection is not ported to repro_torch yet: ROADMAP "
+                "queue A item 7 (checkpoints and recovery)")
+
+
+class _Spans:
+    """Per-step spans: host clock between marks, and on the card CUDA
+    events at the same marks, read once the events have completed."""
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.totals = dict.fromkeys(HOST_SPANS + (DEVICE_SPANS if on_card
+                                                  else ()), 0.0)
+        self._pending: List[tuple] = []   # (name, start event, end event)
+        self._t = 0.0
+        self._event = None
+
+    def start(self) -> None:
+        self._t = time.perf_counter()
+        self._event = self._record() if self.on_card else None
+
+    def _record(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def mark(self, name: str, device: bool = False) -> None:
+        now = time.perf_counter()
+        self.totals[name] += now - self._t
+        self._t = now
+        if self.on_card:
+            ev = self._record()
+            if device:
+                self._pending.append((f"device_{name}", self._event, ev))
+            self._event = ev
+
+    def resolve(self) -> None:
+        """Add the device spans of the completed steps (after a
+        synchronize)."""
+        for name, a, b in self._pending:
+            self.totals[name] += a.elapsed_time(b) / 1e3
+        self._pending.clear()
+
+
+class DistGNNTrainer:
+    """Synchronous data-parallel node classification over T = machines x
+    trainers_per_machine trainers. ``params`` (a tree of tensors, e.g.
+    the reference's initial parameters through
+    :func:`~repro_torch.models.gnn.params_from_numpy`) replaces the
+    seeded :func:`~repro_torch.models.gnn.init_gnn` draw."""
+
+    def __init__(self, ds: GraphDataset, model_cfg: GNNConfig,
+                 job: TrainJobConfig, *, device="cuda", params=None):
+        self.device = resolve_device(device)
+        self.ds = ds
+        if job.impl is not None:
+            model_cfg = dataclasses.replace(model_cfg, impl=job.impl)
+        _check_ported(model_cfg.arch)
+        self.cfg = model_cfg
+        self.job = job
+        self.task = job.task
+
+        # the world: partition + KVStore, behind one handle
+        self.graph = DistGraph(
+            ds, num_machines=job.num_machines,
+            trainers_per_machine=job.trainers_per_machine,
+            partition_method=job.partition_method, hetero=False,
+            seed=job.seed, network=job.network,
+            replication=job.replication,
+            max_rpc_retries=job.max_rpc_retries, hedge_ms=job.hedge_ms)
+        self.hp = self.graph.hp
+        self.partition_time_s = self.graph.partition_time_s
+        self.transport = self.graph.transport
+        self.store = self.graph.store
+        self.labels_new = self.graph.labels
+
+        # per-trainer seed split (§5.6.1)
+        self.trainer_seeds = self.graph.node_splits(
+            self.graph.train_nids, use_level2=job.use_level2, seed=job.seed)
+        self.locality = self.graph.locality_report(self.trainer_seeds)
+
+        # per-trainer loaders (each owns its sampler, client, cache and
+        # async pipeline); the trainer only stacks their batches
+        self.num_trainers = self.graph.num_trainers
+        self.loaders: List[NodeDataLoader] = []
+        for ti in range(self.num_trainers):
+            gt = self.graph.trainer_view(ti)
+            seeds = self.trainer_seeds[ti]
+            self.loaders.append(NodeDataLoader(
+                gt, seeds, model_cfg.fanouts,
+                batch_size=model_cfg.batch_size,
+                labels=self.labels_new[seeds], sync=job.sync,
+                non_stop=job.non_stop, depths=job.pipeline_depths,
+                device_prefetch=False, cache=gt.feature_cache(job.cache),
+                sample_workers=job.sample_workers,
+                seed=job.seed + 200 + ti, sampler_seed=job.seed + 100 + ti))
+        # component views (stats, tests, benchmarks)
+        self.samplers = [ld.sampler for ld in self.loaders]
+        self.pipelines = [ld.pipeline for ld in self.loaders]
+        self.caches = [ld.cache for ld in self.loaders]
+
+        self.batches_per_epoch = min(len(ld) for ld in self.loaders)
+        if self.batches_per_epoch < 1:
+            self.stop()
+            fewest = min(len(s) for s in self.trainer_seeds)
+            raise ValueError(
+                f"batch_size {model_cfg.batch_size} exceeds the per-trainer "
+                f"training-set split ({fewest} seeds/trainer) — shrink the "
+                f"batch or the trainer count")
+
+        self.params = (init_gnn(model_cfg,
+                                torch.Generator().manual_seed(job.seed),
+                                device=self.device)
+                       if params is None else params_to(params, self.device))
+        self.opt = adamw_init(self.params)
+        self.global_step = 0
+        self.spans = _Spans(self.device.type == "cuda")
+
+    # ------------------------------------------------------------------
+    def _stack(self, batches: List[dict]) -> dict:
+        """Stack the T trainers' host batches on a leading axis in host
+        memory and stage them on the device with ONE packed copy."""
+        return device_stage(stack_trees(batches), self.device).unpack()
+
+    def _forward(self, params, stacked: dict, cfg: GNNConfig):
+        """(mean loss, mean accuracy, the leaf tensors the loss is
+        differentiated against)."""
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _p: next(it), params)
+        logits = apply_gnn(cfg, live, stacked)
+        losses = nc_loss(logits, stacked["labels"], stacked["seed_mask"])
+        accs = nc_accuracy(logits, stacked["labels"], stacked["seed_mask"])
+        return losses.mean(), accs.mean(), leaves
+
+    def loss_and_grads(self, stacked: dict, params=None,
+                       impl: Optional[str] = None):
+        """The step's loss, accuracy and gradient tree on ``stacked`` (the
+        trainer's own params unless given; ``impl`` overrides the model
+        config's kernel choice), without updating anything."""
+        params = self.params if params is None else params
+        cfg = (self.cfg if impl is None
+               else dataclasses.replace(self.cfg, impl=impl))
+        loss, acc, leaves = self._forward(params, stacked, cfg)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        return loss.detach(), acc, tree_map(lambda _p: next(grads), params)
+
+    def train_step(self, stacked: dict):
+        """One synchronous AdamW step on the stacked batch -> (loss, acc)
+        as tensors on the device."""
+        spans = self.spans
+        loss, acc, leaves = self._forward(self.params, stacked, self.cfg)
+        spans.mark("forward", device=True)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = tree_map(lambda _p: next(grads), self.params)
+        spans.mark("backward", device=True)
+        self.params, self.opt = adamw_update(self.params, grads, self.opt,
+                                             lr=self.job.lr)
+        spans.mark("optimizer", device=True)
+        self.global_step += 1
+        return loss.detach(), acc
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> dict:
+        iters = [ld.epoch(epoch) for ld in self.loaders]
+        spans = self.spans
+        t0 = time.perf_counter()
+        losses, accs = [], []
+        for _ in range(self.batches_per_epoch):
+            spans.start()
+            batches = [next(it).model_input() for it in iters]
+            spans.mark("wait_loaders")
+            stacked = self._stack(batches)
+            spans.mark("stack_stage")
+            loss, acc = self.train_step(stacked)
+            losses.append(float(loss))
+            accs.append(float(acc))
+            spans.mark("read_loss")
+        # drain every iterator to ITS epoch boundary (with equal
+        # per-trainer batch counts this pulls nothing in non-stop mode and
+        # just exhausts finite pipelines)
+        for it in iters:
+            for _ in it:
+                pass
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        spans.resolve()
+        dt = time.perf_counter() - t0
+        return {"epoch": epoch, "loss": float(np.mean(losses)),
+                "acc": float(np.mean(accs)), "time_s": dt,
+                "batches": self.batches_per_epoch, "losses": losses}
+
+    @torch.no_grad()
+    def evaluate(self, nids_old: np.ndarray, max_batches: int = 50) -> float:
+        """Node-classification accuracy over ``nids_old`` through a
+        ``NodeDataLoader(mode="eval")``: sequential batches, dedicated
+        sampler (the trainers' samplers are owned by their possibly still
+        running non_stop pipeline threads)."""
+        nids = self.graph.to_new_nids(np.asarray(nids_old))
+        g0 = self.graph.trainer_view(0)
+        loader = NodeDataLoader(
+            g0, nids, self.cfg.fanouts, batch_size=self.cfg.batch_size,
+            labels=self.labels_new[nids], mode="eval",
+            sampler_seed=self.job.seed + 999)
+        accs = []
+        with loader:
+            for batch in itertools.islice(loader, max_batches):
+                staged = device_stage(batch.model_input(),
+                                      self.device).unpack()
+                logits = apply_gnn(self.cfg, self.params, staged)
+                accs.append(float(nc_accuracy(logits, staged["labels"],
+                                              staged["seed_mask"])))
+        return float(np.mean(accs)) if accs else float("nan")
+
+    def stop(self):
+        for ld in self.loaders:
+            ld.close()
+
+    def spans_ms(self) -> dict:
+        """Every span summed over the steps taken so far, in ms."""
+        return {k: v * 1e3 for k, v in self.spans.totals.items()}
+
+    def sampling_stats(self) -> dict:
+        remote = sum(s.stats.seeds_remote for s in self.samplers)
+        total = sum(s.stats.seeds_total for s in self.samplers)
+        owner_req = sum(s.stats.owner_requests for s in self.samplers)
+        rel_req = sum(s.stats.relation_requests for s in self.samplers)
+        out = {"remote_seed_frac": remote / max(total, 1),
+               "transport": self.transport.stats(),
+               "sampler_requests": {
+                   "owner_requests": owner_req,
+                   "relation_requests": rel_req,
+                   "coalescing_factor": rel_req / max(owner_req, 1),
+               },
+               "mean_seed_locality": self.locality["mean_local_frac"],
+               "partition_time_s": self.partition_time_s}
+        live = [c for c in self.caches if c is not None]
+        if live:
+            per = [c.stats() for c in live]
+            hits = sum(p["hits"] for p in per)
+            misses = sum(p["misses"] for p in per)
+            out["cache"] = {
+                "hit_rate": hits / max(hits + misses, 1),
+                "used_bytes": sum(p["used_bytes"] for p in per),
+                "evictions": sum(p["evictions"] for p in per),
+                "stale_hits": sum(p["stale_hits"] for p in per),
+                "per_trainer": per,
+            }
+        return out

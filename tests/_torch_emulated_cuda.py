@@ -1,0 +1,142 @@
+"""CPU stand-ins for the port's CUDA kernel wrappers, for tests that drive
+the card's code path (the ``torch.autograd.Function``s, the grouped
+orders, the layers' flattening) where there is no card.
+
+Each stand-in computes what its kernel computes, over the same grouped
+edge order and in the same per-group edge order (``index_add_`` on the CPU
+adds sequentially), and counts its launches like the wrapper it replaces.
+:func:`emulate_cuda` patches them in, together with an ``impl`` switch
+that takes the card's path for CPU tensors. The kernels themselves are
+held against the plain versions on the card by ``chip_smoke.py``.
+"""
+import torch
+
+from repro_torch.kernels.edge_softmax import ops as es_ops
+from repro_torch.kernels.fused_edge_softmax_aggregate import ops as k3_ops
+from repro_torch.kernels.fused_gather_aggregate import ops as k1_ops
+from repro_torch.kernels.segment_sum import ops as k2_ops
+from repro_torch.models.gnn import layers
+
+
+def _live(groups):
+    """(edge ids, their group keys) of the live edges in grouped order."""
+    n_live = int(groups.offsets[-1])
+    edges = groups.order[:n_live].long()
+    keys = torch.repeat_interleave(
+        torch.arange(groups.num_groups),
+        (groups.offsets[1:] - groups.offsets[:-1]).long())
+    return edges, keys
+
+
+def _grouped_sum(rows, keys, num_groups):
+    out = torch.zeros((num_groups,) + tuple(rows.shape[1:]),
+                      dtype=rows.dtype)
+    return out.index_add_(0, keys, rows)
+
+
+def fused_gather_aggregate(h_src, edge_src, groups):
+    fused_gather_aggregate.launches += 1
+    edges, keys = _live(groups)
+    return _grouped_sum(h_src[edge_src[edges].long()], keys,
+                        groups.num_groups)
+
+
+def segment_sum(msg, groups):
+    if msg.requires_grad:
+        raise NotImplementedError("segment_sum_cuda has no backward kernel")
+    segment_sum.launches += 1
+    edges, keys = _live(groups)
+    return _grouped_sum(msg[edges], keys, groups.num_groups)
+
+
+def src_scatter(grad, edge_dst, groups, weights=None):
+    src_scatter.launches += 1
+    edges, keys = _live(groups)
+    rows = grad[edge_dst[edges].long()]
+    if weights is not None:
+        h = weights.shape[1]
+        rows = (rows.view(len(edges), h, rows.shape[1] // h)
+                * weights[edges][:, :, None]).reshape(rows.shape)
+    return _grouped_sum(rows, keys, groups.num_groups)
+
+
+def edge_softmax_stats(scores, groups):
+    edge_softmax_stats.launches += 1
+    edges, keys = _live(groups)
+    h = scores.shape[1]
+    m = torch.full((groups.num_groups, h), -1e30).scatter_reduce(
+        0, keys[:, None].expand(-1, h), scores[edges], "amax")
+    m = torch.where(m <= -5e29, 0.0, m)
+    z = _grouped_sum(torch.exp(scores[edges] - m[keys]), keys,
+                     groups.num_groups)
+    return m, z
+
+
+def edge_softmax_norm(scores, edge_dst, edge_mask, m, z):
+    edge_softmax_norm.launches += 1
+    d = edge_dst.long()
+    alpha = torch.exp(scores - m[d]) / torch.clamp_min(z[d], 1e-30)
+    return torch.where(edge_mask[:, None], alpha, 0.0)
+
+
+def fused_edge_softmax_aggregate(h_proj, scores, edge_src, groups, m, z):
+    fused_edge_softmax_aggregate.launches += 1
+    edges, keys = _live(groups)
+    alpha = (torch.exp(scores[edges] - m[keys])
+             / torch.clamp_min(z[keys], 1e-30))
+    rows = h_proj[edge_src[edges].long()] * alpha[:, :, None]
+    return _grouped_sum(rows.flatten(1), keys, groups.num_groups)
+
+
+def fused_edge_softmax_aggregate_bwd(grad, h_proj, out, alpha, edge_src,
+                                     groups):
+    fused_edge_softmax_aggregate_bwd.launches += 1
+    edges, keys = _live(groups)
+    v, h, dh = h_proj.shape
+    g = grad.view(-1, h, dh)
+    dot = (g[keys] * h_proj[edge_src[edges].long()]).sum(-1)
+    dot_out = (g * out.view(-1, h, dh)).sum(-1)[keys]
+    ds = torch.zeros_like(alpha)
+    ds[edges] = alpha[edges] * (dot - dot_out)
+    return ds
+
+
+STAND_INS = {
+    "fused_gather_aggregate": fused_gather_aggregate,
+    "segment_sum": segment_sum,
+    "src_scatter": src_scatter,
+    "edge_softmax_stats": edge_softmax_stats,
+    "edge_softmax_norm": edge_softmax_norm,
+    "fused_edge_softmax_aggregate": fused_edge_softmax_aggregate,
+    "fused_edge_softmax_aggregate_bwd": fused_edge_softmax_aggregate_bwd,
+}
+
+
+def _card_path(impl, x):
+    return "ref" if impl == "ref" else "cuda"
+
+
+def emulate_cuda(monkeypatch) -> dict:
+    """Route every op's card path to the stand-ins, for CPU tensors; the
+    launch counts start at 0. Returns the stand-ins by kernel name."""
+    for fn in STAND_INS.values():
+        fn.launches = 0
+    for mod in (layers, k1_ops, k2_ops, k3_ops, es_ops):
+        monkeypatch.setattr(mod, "resolve_impl", _card_path)
+    patches = [
+        (k1_ops, "fused_gather_aggregate_cuda", fused_gather_aggregate),
+        (k1_ops, "src_scatter_cuda", src_scatter),
+        (k2_ops, "segment_sum_cuda", segment_sum),
+        (k3_ops, "edge_softmax_stats_cuda", edge_softmax_stats),
+        (k3_ops, "edge_softmax_norm_cuda", edge_softmax_norm),
+        (k3_ops, "fused_edge_softmax_aggregate_cuda",
+         fused_edge_softmax_aggregate),
+        (k3_ops, "fused_edge_softmax_aggregate_bwd_cuda",
+         fused_edge_softmax_aggregate_bwd),
+        (k3_ops, "src_scatter_cuda", src_scatter),
+        (es_ops, "edge_softmax_stats_cuda", edge_softmax_stats),
+        (es_ops, "edge_softmax_norm_cuda", edge_softmax_norm),
+    ]
+    for mod, name, fn in patches:
+        monkeypatch.setattr(mod, name, fn)
+    return STAND_INS
