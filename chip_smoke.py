@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about two minutes
+    python3 chip_smoke.py            # one card; about four minutes
 
 Phases, each of which exits non-zero when it fails:
 
 1. device   -- requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build    -- builds every CUDA kernel of the serving and training paths
-               with ``nvcc`` for sm_90a from ``src/repro_torch/csrc`` (one
-               process per source, all at once).
+2. build    -- builds every CUDA kernel of the port with ``nvcc`` for
+               sm_90a from ``src/repro_torch/csrc`` (one process per
+               source, all at once).
 3. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
                real batch at the paper's config (batch 1000, fanouts
                15/10/5; GraphSAGE and GAT share it) and holds each kernel
@@ -25,7 +25,16 @@ Phases, each of which exits non-zero when it fails:
                kernel's time, the plain version's, one PyTorch library
                call's where one computes the same function (a yardstick the
                port never calls), the bound from the bytes it must move,
-               and the max error.
+               and the max error. Then K5 ``sparse_adam`` at table scale
+               (100,000 unique rows of a 1,134,649 x 128 float32 table,
+               three steps, each bitwise equal to the plain version on the
+               card, to the NumPy update on host copies and to a second
+               launch, untouched rows unchanged; timed against one
+               ``torch.optim.SparseAdam.step``) and K6 ``gather_rows``
+               (1,056,000 seeded indices into a 2,449,029 x 100 table, in
+               float32 with int32 and int64 indices and in bfloat16,
+               exactly equal to ``table[idx]``; timed against
+               ``torch.index_select``).
 4. serving  -- a main path: ``repro_torch.launch.gnn_serve`` at its
                defaults (batch 8, micro-batch capacity 8) with GraphSAGE
                at full width (in 100, hidden 256, 16 classes, 3 layers),
@@ -49,10 +58,26 @@ Phases, each of which exits non-zero when it fails:
                parameters, where one step's time goes (from the second
                run's spans), and the path's kernels again on the first
                step's stacked batch, as in phase 3.
-7. report   -- a JSON line of every ported kernel (its times summed over
+7. recovery -- kill-and-revive through ``repro_torch.launch.train``
+               (GraphSAGE as in phase 6, 2 epochs, a 64 MB cache,
+               checkpoints every 2 steps) killed at (epoch 1, batch 2):
+               it must revive from the (epoch 1, batch 1) checkpoint and
+               end with parameters bitwise equal to the same command
+               without the fault; the revived run is counted.
+8. embedding -- the slice-3 path: ``DistEmbedding(device="cuda")`` over
+               the same 1,134,649 x 128 rows on 2 owners with replication
+               2, 4 pushes of 250,000 seeded ids with duplicates from
+               client 0, counted (K5 must launch once for each owner a
+               push touches); after every push the table, its moments,
+               step counts and every replica byte-identical to a dense
+               NumPy oracle; a checkpoint after push 2, restored into a
+               fresh store, gives the same bytes after pushes 3-4; then
+               where a push's time goes.
+9. report   -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
-               under ``paper_batch``; its launches on each main path), the
+               under ``paper_batch``; its launches on each main path; K5
+               at table scale, K6 at its float32 shape), the
                ``nvidia-smi`` line, and last ``{"ok": true, "device":
                {...}}``.
 
@@ -61,7 +86,8 @@ Tolerances: a kernel against its plain version in float32 rtol = atol =
 atol = 0.5; served logits against ``impl="ref"`` rtol = 1e-4, atol = 1e-5,
 and a training step's loss and gradients against ``impl="ref"`` rtol =
 1e-4, atol = 1e-5 (the plain versions' ``index_add_`` adds with atomics,
-in another order). A kernel is held against its plain version computed
+in another order). K5, K6, the embedding path and recovery compare
+bitwise: no tolerance. A kernel is held against its plain version computed
 with PyTorch's deterministic algorithms (:func:`stable_order`), so that the
 check gives the same answer on every run. Times are CUDA-event medians
 over launches, with L2 flushed before each.
@@ -77,12 +103,25 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SCALE = 14                 # product-sim's default scale
 PAPER_BATCH = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
 REPS = 30
+DEVICE = "cuda"
+# K5 and the embedding path: ogbn-mag's 1,134,649 authors, whose
+# featureless rows get learnable embeddings, at configs/rgcn.py's in_dim
+EMB_ROWS, EMB_DIM = 1_134_649, 128
+K5_ROWS = 100_000
+# pushes of the embedding path, each about the input rows of one RGCN
+# batch of 1000 at fanouts 25/15
+EMB_PUSHES, EMB_IDS = 4, 250_000
+# K6: ogbn-products' nodes and feature width (product-sim mimics it), and
+# the padded layer-0 input rows of one paper batch (PERF.md section 4)
+K6_TABLE_ROWS, K6_WIDTH, K6_ROWS = 2_449_029, 100, 1_056_000
 
 K1 = "src/repro/kernels/fused_gather_aggregate/kernel.py:58"
 K3 = "src/repro/kernels/fused_edge_softmax_aggregate/kernel.py:63"
@@ -94,14 +133,14 @@ KERNELS = {
     "fused_gather_aggregate": dict(
         wrapper="fused_gather_aggregate",
         source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
-        paths=("serving", "train_graphsage")),
+        paths=("serving", "train_graphsage", "train_recover")),
     "segment_sum": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces="src/repro/kernels/segment_sum/kernel.py:55",
-        paths=("serving", "train_graphsage", "train_gat")),
+        paths=("serving", "train_graphsage", "train_gat", "train_recover")),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
-        paths=("train_graphsage",)),
+        paths=("train_graphsage", "train_recover")),
     "edge_softmax_stats": dict(
         wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
         replaces=K4, paths=("train_gat",)),
@@ -119,6 +158,15 @@ KERNELS = {
     "fused_edge_softmax_aggregate_bwd_h": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K3,
         paths=("train_gat",)),
+    "sparse_adam": dict(
+        wrapper="sparse_adam", source=CSRC + "sparse_adam.cu",
+        replaces="src/repro/kernels/sparse_adam/kernel.py:72",
+        paths=("embedding",)),
+    # no path of the system gathers rows with K6 (the JAX package's tests
+    # and micro-benchmark call it); it is held in the kernels phase
+    "gather_rows": dict(
+        wrapper="gather_rows", source=CSRC + "gather_rows.cu",
+        replaces="src/repro/kernels/gather/kernel.py:29", paths=()),
 }
 TRAIN_BATCH = 128
 
@@ -936,6 +984,319 @@ def profile_step(torch, path: str, tr, stacked) -> None:
         for e in top_cpu))
 
 
+# ---------------------------------------------------------------------------
+# slice 3: sparse embeddings (K5), the row gather (K6), recovery
+# ---------------------------------------------------------------------------
+
+def _adam_numpy(w, m, v, rows, g, bc1, bc2, cfg) -> None:
+    """The NumPy float32 expressions of ``repro/kernels/sparse_adam/
+    ref.py``, in place on host tables; bc1/bc2 are (R, 1)."""
+    m[rows] = cfg["beta1"] * m[rows] + (1 - cfg["beta1"]) * g
+    v[rows] = cfg["beta2"] * v[rows] + (1 - cfg["beta2"]) * g * g
+    mhat = m[rows] / bc1
+    vhat = v[rows] / bc2
+    w[rows] -= (cfg["lr"] * mhat / (np.sqrt(vhat) + cfg["eps"])
+                ).astype(w.dtype)
+
+
+def phase_sparse_adam(torch, n=EMB_ROWS, d=EMB_DIM, r=K5_ROWS,
+                      steps=3) -> list:
+    """K5 at table scale: three successive steps of ``r`` unique seeded
+    rows of an (n, d) table on the card, each bitwise against the plain
+    version on the card, against the NumPy expressions on host copies,
+    and against a second launch from the same state; untouched rows keep
+    their bytes. Then the kernel's time, the plain version's, one
+    ``torch.optim.SparseAdam.step`` over the same rows (a time yardstick
+    only: it scales eps by the square root of the bias correction, so it
+    is not the same function bit for bit) and the bound."""
+    from repro_torch.kernels import sparse_adam_cuda, sparse_adam_ref
+
+    cfg = dict(beta1=0.9, beta2=0.999, lr=1e-2, eps=1e-8)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    w = torch.randn((n, d), generator=gen, device=DEVICE)
+    m = torch.randn((n, d), generator=gen, device=DEVICE) * 0.1
+    v = torch.rand((n, d), generator=gen, device=DEVICE) * 0.01
+    plain = [x.clone() for x in (w, m, v)]
+    host = [x.cpu().numpy().copy() for x in (w, m, v)]
+    w0 = w.clone()
+    t = np.zeros(n, dtype=np.int64)
+    touched = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    rng = np.random.default_rng(13)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+
+    for step in range(steps):
+        rows = np.sort(rng.choice(n, r, replace=False))
+        g = rng.standard_normal((r, d)).astype(np.float32)
+        t[rows] += 1
+        tr = t[rows].astype(np.float32)[:, None]
+        bc1, bc2 = 1 - cfg["beta1"] ** tr, 1 - cfg["beta2"] ** tr
+        args = (put(rows.astype(np.int32)), put((1 - cfg["beta1"]) * g),
+                put((1 - cfg["beta2"]) * g * g), put(bc1[:, 0]),
+                put(bc2[:, 0]))
+        again = [x.clone() for x in (w, m, v)]
+        sparse_adam_cuda(w, m, v, *args, **cfg)
+        sparse_adam_cuda(*again, *args, **cfg)
+        sparse_adam_ref(*plain, put(rows), put(g), put(bc1), put(bc2), **cfg)
+        _adam_numpy(*host, rows, g, bc1, bc2, cfg)
+        touched[put(rows)] = True
+        torch.cuda.synchronize()
+        what = f"sparse_adam step {step + 1}"
+        require(all(torch.equal(a, b) for a, b in zip((w, m, v), again)),
+                f"{what}: two runs differ")
+        require(all(torch.equal(a, b) for a, b in zip((w, m, v), plain)),
+                f"{what}: kernel differs from its plain version "
+                f"(max abs err {max_err(torch, w, plain[0]):.3e})")
+        require(all(np.array_equal(a.cpu().numpy(), b)
+                    for a, b in zip((w, m, v), host)),
+                f"{what}: kernel differs from the NumPy update")
+        require(torch.equal(w[~touched], w0[~touched]),
+                f"{what}: untouched rows changed")
+        del again
+    log(f"[kernels] sparse_adam: {steps} steps of {r} rows of a ({n}, {d}) "
+        f"table bitwise equal to the plain version, to NumPy and to a "
+        f"second launch; {int((~touched).sum())} untouched rows unchanged")
+
+    # time the last step's update on scratch copies of the tables
+    scratch = [x.clone() for x in (w, m, v)]
+    kernel_ms = cuda_ms(torch, lambda: sparse_adam_cuda(*scratch, *args,
+                                                        **cfg))
+    rows_d, g_d = put(rows), put(g)
+    bc1_d, bc2_d = put(bc1), put(bc2)
+    plain_ms = cuda_ms(torch, lambda: sparse_adam_ref(
+        *scratch, rows_d, g_d, bc1_d, bc2_d, **cfg))
+    p = torch.nn.Parameter(scratch[0])
+    opt = torch.optim.SparseAdam([p], lr=cfg["lr"], betas=(cfg["beta1"],
+                                                           cfg["beta2"]),
+                                 eps=cfg["eps"])
+    p.grad = torch.sparse_coo_tensor(rows_d[None], g_d, (n, d))
+    library_ms = cuda_ms(torch, opt.step)
+    # the least traffic: each touched row of w, m, v read and written,
+    # cm and cv read, and a row id and two corrections a row
+    nbytes = r * d * 4 * 8 + r * 12
+    case = {"case": f"K5 table scale, step {steps}", "N": n, "D": d, "R": r,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **dict(zip(
+                ("bound_ms", "bound_by"), bound(nbytes, 10 * r * d))),
+            "max_abs_err": max_err(torch, w, plain[0])}
+    log(f"[kernels] {json.dumps(case)}")
+    del w, m, v, plain, w0, scratch, p, opt, touched
+    torch.cuda.empty_cache()
+    return [case]
+
+
+def phase_gather(torch, v=K6_TABLE_ROWS, f=K6_WIDTH, n=K6_ROWS) -> list:
+    """K6 on a (v, f) table far past L2 and ``n`` seeded indices, in
+    float32 with int32 and int64 indices and in bfloat16: exactly equal
+    to ``table[idx]`` and to a second launch. Times of the kernel, the
+    plain version, ``torch.index_select`` and the bound."""
+    from repro_torch.kernels import gather_rows_cuda, gather_rows_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    table = torch.randn((v, f), generator=gen, device=DEVICE)
+    idx = torch.randint(0, v, (n,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    cases = []
+    for tab, ix in ((table, idx), (table, idx.long()),
+                    (table.to(torch.bfloat16), idx)):
+        out1 = gather_rows_cuda(tab, ix)
+        out2 = gather_rows_cuda(tab, ix)
+        want = gather_rows_ref(tab, ix)
+        torch.cuda.synchronize()
+        what = f"gather_rows {tab.dtype} {ix.dtype}"
+        require(torch.equal(out1, out2), f"{what}: two runs differ")
+        require(torch.equal(out1, want), f"{what}: differs from table[idx]")
+        nbytes = n * (ix.element_size() + 2 * f * tab.element_size())
+        case = {"case": f"K6 {str(tab.dtype)[6:]} rows, "
+                        f"{str(ix.dtype)[6:]} indices",
+                "V": v, "F": f, "N": n,
+                "kernel_ms": cuda_ms(torch, lambda: gather_rows_cuda(tab,
+                                                                     ix)),
+                "plain_ms": cuda_ms(torch, lambda: gather_rows_ref(tab, ix)),
+                "library_ms": cuda_ms(torch, lambda: torch.index_select(
+                    tab, 0, ix)),
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0))),
+                "max_abs_err": max_err(torch, out1, want)}
+        cases.append(case)
+        log(f"[kernels] {json.dumps(case)}")
+    del table, idx, out1, out2, want
+    torch.cuda.empty_cache()
+    return cases
+
+
+class DenseAdamOracle:
+    """Single-table row-sparse Adam: the exact update DistEmbedding's
+    servers apply shard by shard (the float32 expressions and the
+    duplicate coalescing of tests/test_embedding_oracle.py), on one dense
+    NumPy table."""
+
+    def __init__(self, w0, cfg):
+        self.w = w0.copy()
+        self.m = np.zeros_like(w0, dtype=np.float32)
+        self.v = np.zeros_like(w0, dtype=np.float32)
+        self.t = np.zeros(len(w0), dtype=np.int64)
+        self.cfg = cfg
+
+    def push(self, ids, grad) -> None:
+        ids = np.asarray(ids, dtype=np.int64)
+        uniq, inv = np.unique(ids, return_inverse=True)
+        g = np.zeros((len(uniq), grad.shape[1]), dtype=np.float32)
+        np.add.at(g, inv, grad.astype(np.float32))
+        cfg, rows = self.cfg, uniq
+        self.t[rows] += 1
+        tr = self.t[rows].astype(np.float32)[:, None]
+        self.m[rows] = cfg.beta1 * self.m[rows] + (1 - cfg.beta1) * g
+        self.v[rows] = cfg.beta2 * self.v[rows] + (1 - cfg.beta2) * g * g
+        mhat = self.m[rows] / (1 - cfg.beta1 ** tr)
+        vhat = self.v[rows] / (1 - cfg.beta2 ** tr)
+        self.w[rows] -= (cfg.lr * mhat / (np.sqrt(vhat) + cfg.eps)
+                         ).astype(self.w.dtype)
+
+
+def _embedding_world(n, d):
+    from repro_torch.core.kvstore import (DistEmbedding, DistKVStore,
+                                          PartitionPolicy)
+
+    store = DistKVStore({"node": PartitionPolicy(
+        "node", np.array([0, n // 2, n]))}, replication=2)
+    return store, DistEmbedding(store, "emb", n, d, "node", seed=0,
+                                device=DEVICE)
+
+
+def _check_embedding(store, oracle, what) -> None:
+    for suffix, want in (("", oracle.w), ("__m", oracle.m),
+                         ("__v", oracle.v), ("__t", oracle.t)):
+        got = store.gather_all("emb" + suffix)
+        require(got.dtype == want.dtype and np.array_equal(got, want),
+                f"{what}: emb{suffix} differs from the dense oracle")
+        for p in range(store.num_parts):
+            primary = store.servers[p].local_view("emb" + suffix)
+            for h in store.replicas_of(p)[1:]:
+                require(np.array_equal(store.servers[h].replica_view(
+                    "emb" + suffix, p), primary),
+                        f"{what}: replica {h} of emb{suffix} part {p} "
+                        f"differs from its primary")
+
+
+def phase_embedding(torch, n=EMB_ROWS, d=EMB_DIM, pushes=EMB_PUSHES,
+                    ids_per_push=EMB_IDS) -> dict:
+    """The slice's path: ``DistEmbedding.push_grad`` on the card, through
+    a 2-owner KVStore with replication 2, ``pushes`` pushes from client 0
+    of seeded ids with duplicates, counted; after every push the table,
+    its moments and step counts byte-identical to a dense NumPy oracle,
+    and every replica to its primary; K5 launched once for each owner a
+    push touched. A checkpoint after push 2 restored into a fresh store
+    must give the same bytes after the remaining pushes. Then where a
+    push's time goes."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_kvstore, save_kvstore
+
+    t0 = time.perf_counter()
+    store, emb = _embedding_world(n, d)
+    oracle = DenseAdamOracle(store.gather_all("emb"), emb.optim)
+    rng = np.random.default_rng(21)
+    traffic = [(rng.integers(0, n, ids_per_push),
+                rng.standard_normal((ids_per_push, d)).astype(np.float32))
+               for _ in range(pushes)]
+    log(f"[embedding] ({n}, {d}) table on 2 owners, replication 2, built "
+        f"in {time.perf_counter() - t0:.2f} s; {pushes} pushes of "
+        f"{ids_per_push} ids")
+    client = store.client(0)
+    owners, ckpt = 0, tempfile.TemporaryDirectory(prefix="chip_smoke_kv")
+    warm = None
+
+    def run():
+        nonlocal owners, warm
+        for i, (ids, grad) in enumerate(traffic):
+            if i == 1:
+                warm = dict(emb.spans)
+            t1 = time.perf_counter()
+            emb.push_grad(client, ids, grad)
+            dt = time.perf_counter() - t1
+            owners += len(np.unique(store.policy_for("emb").part_of(ids)))
+            oracle.push(ids, grad)
+            _check_embedding(store, oracle, f"embedding push {i + 1}")
+            log(f"[embedding] push {i + 1}: {len(np.unique(ids))} unique "
+                f"rows in {dt * 1e3:.3f} ms; table, moments, step counts "
+                f"and replicas byte-identical to the dense oracle")
+            if i == 1:
+                save_kvstore(store, ckpt.name)
+
+    try:
+        _, launches = counted("embedding", run)
+        require(launches["sparse_adam"] == owners,
+                f"sparse_adam launched {launches['sparse_adam']} times for "
+                f"{owners} owner updates")
+        t1 = time.perf_counter()
+        fresh, emb2 = _embedding_world(n, d)
+        load_kvstore(fresh, ckpt.name)
+        for ids, grad in traffic[2:]:
+            emb2.push_grad(fresh.client(0), ids, grad)
+        _check_embedding(fresh, oracle, "embedding restored from push 2")
+        log(f"[embedding] restored the push-2 checkpoint into a fresh "
+            f"store and replayed pushes 3-{pushes}: byte-identical "
+            f"({time.perf_counter() - t1:.2f} s)")
+    finally:
+        ckpt.cleanup()
+    done = pushes - 1
+    spans = {k: (emb.spans[k] - warm[k]) / done * 1e3 for k in emb.spans}
+    host = {k: v for k, v in spans.items() if not k.startswith("device_")}
+    total = sum(host.values())
+    log(f"[breakdown] embedding, one push of {ids_per_push} ids (mean of "
+        f"pushes 2-{pushes}, host clock): "
+        + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                    for k, v in host.items())
+        + "; on the card (CUDA events): "
+        + ", ".join(f"{k[7:]} {v:.3f} ms" for k, v in spans.items()
+                    if k.startswith("device_")))
+    del store, emb, fresh, emb2, oracle
+    return launches
+
+
+def phase_recovery(torch) -> dict:
+    """Kill-and-revive through the entry point: ``repro_torch.launch.
+    train`` (GraphSAGE, 2 epochs, checkpoints every 2 steps, a 64 MB
+    cache) killed at (epoch 1, batch 2) must revive in process from the
+    (epoch 1, batch 1) checkpoint and end with parameters bitwise equal to
+    the same command without the fault. The revived run is counted."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves
+
+    def argv(ck):
+        return ["--arch", "graphsage", "--scale", str(SCALE),
+                "--batch-size", str(TRAIN_BATCH), "--epochs", "2",
+                "--cache-budget-mb", "64", "--checkpoint-dir", ck,
+                "--checkpoint-interval", "2", "--device", DEVICE]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ck") as tmp:
+        t0 = time.perf_counter()
+        plain = train.run_gnn(train.build_parser().parse_args(
+            argv(f"{tmp}/plain")))
+        t1 = time.perf_counter()
+        chaos, launches = counted("train_recover", lambda: train.run_gnn(
+            train.build_parser().parse_args(
+                argv(f"{tmp}/chaos") + ["--inject-fault", "1:2"])))
+        t2 = time.perf_counter()
+    require(chaos["revived"] == [(1, 1)],
+            f"the killed run revived from {chaos['revived']}, not from the "
+            f"(epoch 1, batch 1) checkpoint")
+    a, b = (tree_leaves(s["trainer"].params) for s in (plain, chaos))
+    require(all(torch.equal(x, y) for x, y in zip(a, b)),
+            "the revived run's parameters differ from the uninterrupted "
+            "run's")
+    log(f"[train_recover] killed at (1, 2), revived from (1, 1): "
+        f"bitwise-identical parameters ({sum(x.numel() for x in a)} "
+        f"values) to the uninterrupted run; runs {t1 - t0:.2f} s and "
+        f"{t2 - t1:.2f} s")
+    del plain, chaos
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _sums(cases: list) -> dict:
     """Times summed over the cases the main path runs; ``library_ms`` is
     null where no single PyTorch call computes the same function."""
@@ -958,6 +1319,11 @@ SHAPES = {
     "fused_gather_aggregate_bwd": "sum over layers 1 and 2 of one "
                                   "GraphSAGE training step (4 trainers x "
                                   "128 seeds)",
+    "sparse_adam": f"one step of {K5_ROWS} unique rows of a ({EMB_ROWS} x "
+                   f"{EMB_DIM}) float32 table (on the embedding path the "
+                   f"kernel updates the staged rows 0..R-1 of each owner)",
+    "gather_rows": f"{K6_ROWS} int32 indices into a ({K6_TABLE_ROWS} x "
+                   f"{K6_WIDTH}) float32 table",
 }
 GAT_SHAPES = ("sum over the 3 layers of one GAT training step (4 trainers "
               "x 128 seeds)")
@@ -976,7 +1342,8 @@ def report(primary: dict, paper: dict, launches: dict) -> dict:
                     "launches": sum(by_path.values()),
                     "launches_by_path": by_path, **_sums(primary[name]),
                     "shapes": SHAPES.get(name, GAT_SHAPES),
-                    "paper_batch": _sums(paper[name])})
+                    "paper_batch": (_sums(paper[name]) if name in paper
+                                    else None)})
     return {"kernels": out}
 
 
@@ -1017,6 +1384,8 @@ def main() -> int:
                            gat_params))
     del paper_batch, gat_params
     torch.cuda.empty_cache()
+    k5 = phase_sparse_adam(torch)
+    k6 = phase_gather(torch)
 
     launches = {"serving": phase_serving(torch, world, args)}
     primary = layer_cases(torch, "tick", phase_breakdown(torch, world, args),
@@ -1025,9 +1394,13 @@ def main() -> int:
     launches["train_gat"], gat_train = phase_training(torch, "gat")
     launches["train_graphsage"], sage_train = phase_training(torch,
                                                              "graphsage")
+    launches["train_recover"] = phase_recovery(torch)
+    launches["embedding"] = phase_embedding(torch)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]
+    primary["sparse_adam"] = k5
+    primary["gather_rows"] = k6[:1]
 
     print(json.dumps(report(primary, paper, launches)))
     print(smi)

@@ -9,10 +9,11 @@ kernel on a ported path is a hand-written CUDA kernel for Hopper
 asks for ``device="cpu"``.
 
 The public surface is ``repro_torch.api`` (``DistGraph``,
-``NodeDataLoader``, ``DistGNNTrainer``, ``InferenceServer``); its names
-are re-exported here lazily.
+``NodeDataLoader``, ``DistEmbedding``, ``DistGNNTrainer``,
+``InferenceServer``); its names are re-exported here lazily.
 """
-__all__ = ["DistGraph", "DistTensor", "NodeDataLoader", "DistGNNTrainer",
+__all__ = ["DistGraph", "DistTensor", "DistEmbedding", "SparseAdamConfig",
+           "NodeDataLoader", "DistGNNTrainer",
            "TrainJobConfig", "InferenceServer", "PredictionHandle",
            "ServerOverloaded", "DeadlineExceeded"]
 

@@ -1,6 +1,8 @@
 """``repro_torch.api`` -- the ported public surface: the DGL-style
-:class:`DistGraph` and :class:`NodeDataLoader`, the synchronous
-:class:`DistGNNTrainer` and the online :class:`InferenceServer`.
+:class:`DistGraph`, :class:`NodeDataLoader` and :class:`DistEmbedding`
+(learnable rows in the KVStore, row-sparse Adam at the owners), the
+synchronous :class:`DistGNNTrainer` (with checkpoints and recovery) and
+the online :class:`InferenceServer`.
 
     from repro_torch.api import DistGraph, InferenceServer
 
@@ -8,9 +10,10 @@
     with InferenceServer(g, cfg, params, device="cuda") as srv:
         logits = srv.predict([0, 1, 2])
 
-The edge loader, ``DistEmbedding`` and ``offline_embeddings`` are not
-ported yet (ROADMAP queue A).
+The edge loader and ``offline_embeddings`` are not ported yet (ROADMAP
+queue A).
 """
+from ..core.kvstore.embedding import DistEmbedding, SparseAdamConfig
 from ..core.kvstore.faults import (FaultInjector, OwnerDownWindow,
                                    OwnerUnavailable, RPCRetriesExhausted,
                                    TrainerDeath, TransientRPCError)
@@ -20,7 +23,8 @@ from .inference import (DeadlineExceeded, InferenceServer, PredictionHandle,
                         ServerOverloaded)
 
 __all__ = [
-    "DistGraph", "DistTensor", "NodeBatch", "NodeDataLoader",
+    "DistGraph", "DistTensor", "DistEmbedding", "SparseAdamConfig",
+    "NodeBatch", "NodeDataLoader",
     "DistGNNTrainer", "TrainJobConfig",
     "InferenceServer", "PredictionHandle",
     "ServerOverloaded", "DeadlineExceeded",

@@ -1,5 +1,6 @@
 from .transport import NetworkModel, PeerHealth, Transport
 from .store import DistKVStore, KVClient, KVServer, PartitionPolicy
+from .embedding import DistEmbedding, SparseAdamConfig
 from .cache import CacheConfig, FeatureCache, halo_access_counts
 from .faults import (FaultInjector, OwnerDownError, OwnerDownWindow,
                      OwnerUnavailable, RPCRetriesExhausted, TrainerDeath,
@@ -7,7 +8,7 @@ from .faults import (FaultInjector, OwnerDownError, OwnerDownWindow,
 
 __all__ = [
     "NetworkModel", "PeerHealth", "Transport", "DistKVStore", "KVClient",
-    "KVServer", "PartitionPolicy",
+    "KVServer", "PartitionPolicy", "DistEmbedding", "SparseAdamConfig",
     "CacheConfig", "FeatureCache", "halo_access_counts",
     "FaultInjector", "TransientRPCError", "RPCRetriesExhausted",
     "TrainerDeath", "OwnerDownError", "OwnerDownWindow", "OwnerUnavailable",

@@ -12,8 +12,9 @@ nothing: a kernel is compiled with ``nvcc`` at its first launch
 
 Ported: K1 ``fused_gather_aggregate`` (with its backward), K2
 ``segment_sum``, K3 ``fused_edge_softmax_aggregate`` (with its backward),
-K4 ``edge_softmax``, and ``src_scatter``, the source-keyed reduction both
-backward passes share.
+K4 ``edge_softmax``, ``src_scatter``, the source-keyed reduction both
+backward passes share, K5 ``sparse_adam`` (the owners' row-sparse Adam of
+``DistEmbedding``) and K6 ``gather_rows``.
 """
 from .dst_groups import EdgeGroups, dst_groups, edge_groups, src_groups
 from .edge_softmax import (edge_softmax, edge_softmax_norm_cuda,
@@ -26,9 +27,12 @@ from .fused_gather_aggregate import (FusedGatherAggregate,
                                      fused_gather_aggregate,
                                      fused_gather_aggregate_cuda,
                                      fused_gather_aggregate_ref)
+from .gather import gather_rows, gather_rows_cuda, gather_rows_ref
 from .pack import PackSpec, PackedBatch, device_stage, pack, unpack
 from .segment_sum import (gather_edges, segment_sum, segment_sum_cuda,
                           segment_sum_ref)
+from .sparse_adam import (StagingArena, sparse_adam_apply, sparse_adam_cuda,
+                          sparse_adam_ref, sparse_adam_staged)
 from .src_scatter import src_scatter_cuda, src_scatter_ref
 
 __all__ = ["EdgeGroups", "dst_groups", "edge_groups", "src_groups",
@@ -41,6 +45,9 @@ __all__ = ["EdgeGroups", "dst_groups", "edge_groups", "src_groups",
            "FusedGatherAggregate", "fused_gather_aggregate",
            "fused_gather_aggregate_cuda",
            "fused_gather_aggregate_ref",
+           "gather_rows", "gather_rows_cuda", "gather_rows_ref",
+           "StagingArena", "sparse_adam_apply", "sparse_adam_cuda",
+           "sparse_adam_ref", "sparse_adam_staged",
            "gather_edges", "segment_sum", "segment_sum_cuda",
            "segment_sum_ref", "src_scatter_cuda", "src_scatter_ref",
            "PackSpec", "PackedBatch", "device_stage", "pack", "unpack",
@@ -56,4 +63,6 @@ CUDA_WRAPPERS = {
     "edge_softmax_norm": edge_softmax_norm_cuda,
     "fused_edge_softmax_aggregate": fused_edge_softmax_aggregate_cuda,
     "fused_edge_softmax_aggregate_bwd": fused_edge_softmax_aggregate_bwd_cuda,
+    "sparse_adam": sparse_adam_cuda,
+    "gather_rows": gather_rows_cuda,
 }

@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("segment_sum", "fused_gather_aggregate", "src_scatter",
-           "edge_softmax", "fused_edge_softmax_aggregate")
+           "edge_softmax", "fused_edge_softmax_aggregate", "sparse_adam",
+           "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

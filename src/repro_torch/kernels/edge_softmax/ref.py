@@ -23,7 +23,7 @@ def edge_softmax_ref(scores: torch.Tensor, edge_dst: torch.Tensor,
     m = m.scatter_reduce(0, dst[:, None].expand_as(s), s, "amax",
                          include_self=True)                     # (N, H)
     m = torch.where(m <= _NEG / 2, 0.0, m)                      # empty dsts
-    ex = torch.where(edge_mask[:, None], torch.exp(s - m[dst]), 0.0)
+    ex = torch.where(edge_mask[:, None], torch.exp(s - m.index_select(0, dst)), 0.0)
     denom = torch.zeros_like(m).index_add_(0, dst, ex)          # (N, H)
     denom = torch.clamp_min(denom, 1e-30)
-    return ex / denom[dst]
+    return ex / denom.index_select(0, dst)

@@ -20,6 +20,6 @@ def fused_edge_softmax_aggregate_ref(h_proj: torch.Tensor,
     """h_proj: (V, H, Dh); scores: (E, H) -> (num_dst, H*Dh): per-dst
     softmax over incoming edges, attention-weighted sum of source rows."""
     alpha = edge_softmax_ref(scores, edge_dst, edge_mask, num_dst)
-    msg = (h_proj[edge_src.long()] * alpha[:, :, None]).reshape(
+    msg = (h_proj.index_select(0, edge_src.long()) * alpha[:, :, None]).reshape(
         edge_src.shape[0], -1)
     return segment_sum_ref(msg, edge_dst, edge_mask, num_dst)

@@ -15,5 +15,5 @@ def fused_gather_aggregate_ref(h_src: torch.Tensor, edge_src: torch.Tensor,
                                num_dst: int) -> torch.Tensor:
     """h_src: (V, F); edge_src/edge_dst: (E,); -> (num_dst, F) masked sum
     of gathered source rows per destination."""
-    return segment_sum_ref(h_src[edge_src.long()], edge_dst, edge_mask,
-                           num_dst)
+    return segment_sum_ref(h_src.index_select(0, edge_src.long()),
+                           edge_dst, edge_mask, num_dst)

@@ -7,17 +7,29 @@ the card unless ``--device cpu`` is given:
         --dataset product-sim --machines 2 --trainers-per-machine 2 \
         --epochs 3
 
-Link prediction (``--task link_prediction``), checkpoints and recovery
-(``--checkpoint-dir``, ``--recover``, ``--inject-fault``,
-``--rpc-fault-rate``), typed graphs (``--hetero``, ``--rel-fanout``) and
-the LM stack are not ported yet: each raises ``NotImplementedError``
-naming its ROADMAP item.
+Elastic fault tolerance (DESIGN.md §10): ``--checkpoint-dir`` with
+``--checkpoint-interval N`` saves a consistent checkpoint every N steps,
+``--recover`` resumes from it, and ``--inject-fault EPOCH:BATCH`` kills the
+trainer at that coordinate; the launcher then revives a replacement in
+process from the last checkpoint, and the run ends with the bytes of the
+uninterrupted one. ``--rpc-fault-rate`` injects transient RPC faults
+(retried; the bytes do not change), both seeded by ``--fault-seed``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage \
+        --epochs 2 --checkpoint-dir /tmp/ck --checkpoint-interval 2 \
+        --inject-fault 1:2
+
+Link prediction (``--task link_prediction``), typed graphs (``--hetero``,
+``--rel-fanout``) and the LM stack are not ported yet: each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import time
 
 
 def _refuse_unported(args) -> None:
@@ -32,23 +44,33 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError("--hetero / --rel-fanout are not ported "
                                   "to repro_torch yet: ROADMAP queue A "
                                   "item 4 (RGCN and the typed path)")
-    if (args.checkpoint_dir or args.checkpoint_interval or args.recover
-            or args.inject_fault or args.rpc_fault_rate):
-        raise NotImplementedError(
-            "--checkpoint-dir / --checkpoint-interval / --recover / "
-            "--inject-fault / --rpc-fault-rate are not ported to "
-            "repro_torch yet: ROADMAP queue A item 7 (checkpoints and "
-            "recovery)")
+
+
+def _kill_at(args):
+    """``--inject-fault EPOCH:BATCH`` as a coordinate, or None."""
+    if not args.inject_fault:
+        return None
+    try:
+        e, _, b = args.inject_fault.partition(":")
+        return int(e), int(b)
+    except ValueError:
+        raise SystemExit(f"--inject-fault expects EPOCH:BATCH, "
+                         f"got {args.inject_fault!r}")
 
 
 def build_trainer(args):
     """(dataset, :class:`~repro_torch.api.DistGNNTrainer`) for ``args``."""
-    from ..api import DistGNNTrainer, TrainJobConfig
+    from ..api import DistGNNTrainer, FaultInjector, TrainJobConfig
     from ..configs import get_config
     from ..core.kvstore import CacheConfig, NetworkModel
     from ..graph import get_dataset
 
     _refuse_unported(args)
+    kill_at = _kill_at(args)
+    if (kill_at or args.recover or args.checkpoint_interval) \
+            and not args.checkpoint_dir:
+        raise SystemExit("--inject-fault / --recover / "
+                         "--checkpoint-interval need --checkpoint-dir")
     cfg = get_config(args.arch)
     ds = get_dataset(args.dataset, scale=args.scale)
     cfg = dataclasses.replace(cfg, in_dim=ds.feats.shape[1],
@@ -58,22 +80,52 @@ def build_trainer(args):
     cache = (CacheConfig.from_mb(args.cache_budget_mb,
                                  policy=args.cache_policy)
              if args.cache_budget_mb > 0 else None)
+    injector = None
+    if kill_at or args.rpc_fault_rate:
+        injector = FaultInjector(seed=args.fault_seed, kill_at=kill_at,
+                                 rpc_failure_rate=args.rpc_fault_rate)
     job = TrainJobConfig(
         num_machines=args.machines,
         trainers_per_machine=args.trainers_per_machine,
         partition_method=args.partition, sync=args.sync,
         non_stop=not args.no_nonstop, cache=cache,
         sample_workers=args.sample_workers, impl=args.impl,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_interval=args.checkpoint_interval,
+        fault_injector=injector,
         replication=args.replication, max_rpc_retries=args.max_rpc_retries,
         hedge_ms=args.hedge_ms,
         network=NetworkModel(sleep=args.simulate_network))
     return ds, DistGNNTrainer(ds, cfg, job, device=args.device)
 
 
+def _revive(tr, args):
+    """A replacement for the killed trainer ``tr``: the same job spec
+    without the injector (its schedule already fired), restored from the
+    last consistent checkpoint and fast-forwarded to its coordinate, or
+    from scratch when no checkpoint was written yet -> (trainer, epoch to
+    resume, the checkpoint's metadata or None)."""
+    from ..api import DistGNNTrainer
+
+    tr.stop()
+    job = dataclasses.replace(tr.job, fault_injector=None)
+    new = DistGNNTrainer(tr.ds, tr.cfg, job, device=tr.device)
+    if not os.path.exists(os.path.join(args.checkpoint_dir, "state.json")):
+        print("[recover] no checkpoint written yet — restarting from "
+              "epoch 0", flush=True)
+        return new, 0, None
+    meta = new.recover(args.checkpoint_dir)
+    return new, meta["epoch"], meta
+
+
 def run_gnn(args, trainer=None) -> dict:
     """Train ``args.epochs`` epochs (with a trainer built from ``args``
-    unless one is given), evaluate on the validation nodes, print the
-    summary JSON and return it with the trainer (``"trainer"``, stopped)."""
+    unless one is given), reviving a killed trainer from its last
+    checkpoint, evaluate on the validation nodes, print the summary JSON
+    and return it with the final trainer (``"trainer"``, stopped) and the
+    coordinates it revived from (``"revived"``)."""
+    from ..api import TrainerDeath
+
     if trainer is None:
         ds, tr = build_trainer(args)
     else:
@@ -83,13 +135,38 @@ def run_gnn(args, trainer=None) -> dict:
           f"{tr.num_trainers} trainers, {tr.batches_per_epoch} "
           f"batches/epoch, seed locality "
           f"{tr.locality['mean_local_frac']:.2f}", flush=True)
-    epochs = []
+    epochs, revived = [], []
+    e = 0
     try:
-        for e in range(args.epochs):
-            m = tr.train_epoch(e)
+        if args.recover:
+            meta = tr.recover(args.checkpoint_dir)
+            e = meta["epoch"]
+            print(f"[recover] resuming at epoch {e}, batch "
+                  f"{meta['batch_index']} (global step "
+                  f"{meta['global_step']}) from {args.checkpoint_dir}",
+                  flush=True)
+        while e < args.epochs:
+            try:
+                m = tr.train_epoch(e)
+            except TrainerDeath as death:
+                # elastic recovery (DESIGN.md §10): tear the dead
+                # trainer's world down, build a replacement from the same
+                # job spec, restore the last checkpoint, and resume
+                print(f"[fault] trainer killed at epoch {death.epoch}, "
+                      f"batch {death.batch_index} — reviving from "
+                      f"checkpoint", flush=True)
+                t0 = time.perf_counter()
+                tr, e, meta = _revive(tr, args)
+                if meta is not None:
+                    revived.append((meta["epoch"], meta["batch_index"]))
+                    print(f"[recover] {time.perf_counter() - t0:.2f}s — "
+                          f"resuming at epoch {e}, batch "
+                          f"{meta['batch_index']}", flush=True)
+                continue
             epochs.append(m)
             print(f"[epoch {e}] loss={m['loss']:.4f} acc={m['acc']:.3f} "
                   f"time={m['time_s']:.2f}s", flush=True)
+            e += 1
         val = tr.evaluate(ds.val_nids)
     finally:
         tr.stop()
@@ -97,7 +174,7 @@ def run_gnn(args, trainer=None) -> dict:
     print(f"[final] val_acc={val:.3f} stats={json.dumps(stats)}",
           flush=True)
     return {"epochs": epochs, "val_acc": val, "stats": stats,
-            "spans_ms": tr.spans_ms(), "trainer": tr}
+            "spans_ms": tr.spans_ms(), "trainer": tr, "revived": revived}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,16 +220,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sampling-stage worker threads per trainer "
                          "(batches are byte-identical for any value)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="checkpoints (not ported yet)")
+                    help="directory for consistent checkpoints (params, "
+                         "optimizer, KVStore shards with row versions, "
+                         "cache snapshots)")
     ap.add_argument("--checkpoint-interval", type=int, default=0,
-                    help="global steps between checkpoints (not ported "
-                         "yet)")
+                    help="global steps between checkpoints (0 = off)")
     ap.add_argument("--recover", action="store_true",
-                    help="restore a checkpoint (not ported yet)")
+                    help="restore --checkpoint-dir before training and "
+                         "fast-forward to its coordinate")
     ap.add_argument("--inject-fault", metavar="EPOCH:BATCH", default=None,
-                    help="chaos testing (not ported yet)")
+                    help="kill the trainer at this coordinate; it is "
+                         "revived in process from the last checkpoint")
     ap.add_argument("--rpc-fault-rate", type=float, default=0.0,
-                    help="chaos testing (not ported yet)")
+                    help="probability that a feature pull or gradient "
+                         "push RPC fails transiently (retried)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault schedule")
     ap.add_argument("--replication", type=int, default=1,
                     help="KVStore feature-plane replica count")
     ap.add_argument("--max-rpc-retries", type=int, default=8,

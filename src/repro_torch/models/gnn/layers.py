@@ -124,7 +124,8 @@ def gat_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
                   + gather_edges(er, edge_dst, edge_mask, by_dst))
     else:
         by_dst = by_src = None
-        scores = el[edge_src.long()] + er[edge_dst.long()]
+        scores = (el.index_select(0, edge_src.long())
+                  + er.index_select(0, edge_dst.long()))
     scores = F.leaky_relu(scores, negative_slope)
     # fused softmax -> weighted gather -> aggregate (attention tail)
     out = fused_edge_softmax_aggregate(h_proj, scores, edge_src, edge_dst,

@@ -16,15 +16,20 @@ per-slot accuracies, as in the reference. The step runs on the card unless
 the trainer is built with ``device="cpu"``.
 
 The constructor options are the reference's Fig. 14 ablation axes
-(``partition_method``, ``use_level2``, ``sync``, ``non_stop``). Link
-prediction, checkpoints and recovery, fault injection and typed graphs
-are not ported yet: each raises ``NotImplementedError`` naming its
-ROADMAP item.
+(``partition_method``, ``use_level2``, ``sync``, ``non_stop``), and the
+elastic fault tolerance of DESIGN.md §10: consistent checkpoints every
+``checkpoint_interval`` steps, a seeded ``fault_injector`` on the world's
+transport, and :meth:`DistGNNTrainer.recover`, which restores a
+checkpoint and replays the rest of the run byte for byte. Link prediction
+and typed graphs are not ported yet: each raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
+import os
 import time
 from typing import List, Optional
 
@@ -34,6 +39,8 @@ import torch
 from ..api.dataloader import NodeDataLoader
 from ..api.dist_graph import DistGraph
 from ..api.inference import resolve_device
+from ..checkpoint import (load_cache, load_kvstore, load_pytree, save_cache,
+                          save_kvstore, save_pytree)
 from ..core.kvstore import CacheConfig, FaultInjector, NetworkModel
 from ..graph.datasets import GraphDataset
 from ..kernels.pack import device_stage, stack_trees
@@ -71,8 +78,13 @@ class TrainJobConfig:
     # on the card, the plain versions on the CPU); "ref" / "cuda" force
     impl: Optional[str] = None
     task: str = "node_classification"
+    # consistent checkpoints every `checkpoint_interval` global steps into
+    # `checkpoint_dir`; a replacement trainer's recover() restores them
+    # and fast-forwards the deterministic schedule to the saved coordinate
     checkpoint_dir: Optional[str] = None
-    checkpoint_interval: int = 0
+    checkpoint_interval: int = 0         # global steps between saves; 0 = off
+    # seeded failure schedule (kill_at death + transient RPC faults),
+    # attached to the world's shared transport
     fault_injector: Optional[FaultInjector] = None
     seed: int = 0
     # r-way replica placement for the KVStore feature plane
@@ -87,14 +99,8 @@ class TrainJobConfig:
             raise NotImplementedError(
                 "link prediction is not ported to repro_torch yet: ROADMAP "
                 "queue A item 5")
-        if self.checkpoint_dir is not None or self.checkpoint_interval:
-            raise NotImplementedError(
-                "checkpoints are not ported to repro_torch yet: ROADMAP "
-                "queue A item 7 (checkpoints and recovery)")
-        if self.fault_injector is not None:
-            raise NotImplementedError(
-                "fault injection is not ported to repro_torch yet: ROADMAP "
-                "queue A item 7 (checkpoints and recovery)")
+        if self.checkpoint_interval and not self.checkpoint_dir:
+            raise ValueError("checkpoint_interval > 0 needs a checkpoint_dir")
 
 
 class _Spans:
@@ -165,6 +171,11 @@ class DistGNNTrainer:
         self.hp = self.graph.hp
         self.partition_time_s = self.graph.partition_time_s
         self.transport = self.graph.transport
+        if job.fault_injector is not None:
+            # every RPC in the world — feature pulls, gradient pushes —
+            # flows through this one transport, so attaching the injector
+            # here puts the whole stack under the failure schedule
+            self.transport.fault_injector = job.fault_injector
         self.store = self.graph.store
         self.labels_new = self.graph.labels
 
@@ -207,7 +218,13 @@ class DistGNNTrainer:
                                 device=self.device)
                        if params is None else params_to(params, self.device))
         self.opt = adamw_init(self.params)
+        # optimizer steps taken since construction (or since recover());
+        # the checkpoint cadence counts these, not per-epoch batches
         self.global_step = 0
+        # (epoch, batch_index) a recover() restored — the next
+        # train_epoch() call must target that epoch and fast-forwards to
+        # that batch (DESIGN.md §10)
+        self._resume: Optional[tuple] = None
         self.spans = _Spans(self.device.type == "cuda")
 
     # ------------------------------------------------------------------
@@ -256,11 +273,34 @@ class DistGNNTrainer:
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> dict:
-        iters = [ld.epoch(epoch) for ld in self.loaders]
+        start = 0
+        if self._resume is not None:
+            r_epoch, r_batch = self._resume
+            if epoch != r_epoch:
+                raise ValueError(
+                    f"recovered at epoch {r_epoch}, batch {r_batch}; the "
+                    f"next train_epoch() must target epoch {r_epoch}, "
+                    f"got {epoch}")
+            self._resume = None
+            start = r_batch
+        iters = [ld.epoch(epoch, start_batch=start) for ld in self.loaders]
+        inj = self.job.fault_injector
+        ckpt_every = self.job.checkpoint_interval
         spans = self.spans
         t0 = time.perf_counter()
         losses, accs = [], []
-        for _ in range(self.batches_per_epoch):
+        for k in range(start, self.batches_per_epoch):
+            # checkpoint BEFORE consuming batch k: coordinate (epoch, k)
+            # means "everything up to batch k-1 is applied", so recovery
+            # resumes AT batch k (skip step 0 — that's the initial state)
+            if (ckpt_every and self.global_step
+                    and self.global_step % ckpt_every == 0):
+                self.save_checkpoint(self.job.checkpoint_dir,
+                                     epoch=epoch, batch_index=k)
+            # injected trainer death fires at the same boundary, so a
+            # killed trainer's last completed step is unambiguous
+            if inj is not None:
+                inj.check_death(epoch, k)
             spans.start()
             batches = [next(it).model_input() for it in iters]
             spans.mark("wait_loaders")
@@ -282,7 +322,7 @@ class DistGNNTrainer:
         dt = time.perf_counter() - t0
         return {"epoch": epoch, "loss": float(np.mean(losses)),
                 "acc": float(np.mean(accs)), "time_s": dt,
-                "batches": self.batches_per_epoch, "losses": losses}
+                "batches": self.batches_per_epoch - start, "losses": losses}
 
     @torch.no_grad()
     def evaluate(self, nids_old: np.ndarray, max_batches: int = 50) -> float:
@@ -305,6 +345,70 @@ class DistGNNTrainer:
                 accs.append(float(nc_accuracy(logits, staged["labels"],
                                               staged["seed_mask"])))
         return float(np.mean(accs)) if accs else float("nan")
+
+    # ---- elastic fault tolerance (DESIGN.md §10) ----------------------
+    def save_checkpoint(self, directory: str, *, epoch: int,
+                        batch_index: int) -> None:
+        """Consistent checkpoint at coordinate ``(epoch, batch_index)``:
+        dense params + optimizer, every KVStore shard WITH its row-version
+        tables, and each trainer's feature-cache snapshot. Coordinates
+        name the state BEFORE batch ``batch_index`` is consumed. The
+        coordinate file is written atomically LAST, so a crash mid-save
+        leaves the previous checkpoint intact rather than a torn one."""
+        os.makedirs(directory, exist_ok=True)
+        save_pytree(self.params, os.path.join(directory, "params"))
+        save_pytree(self.opt, os.path.join(directory, "opt"))
+        save_kvstore(self.store, os.path.join(directory, "kvstore"))
+        for ti, cache in enumerate(self.caches):
+            if cache is not None:
+                save_cache(cache, os.path.join(directory, f"cache{ti}"))
+        state = {"epoch": int(epoch), "batch_index": int(batch_index),
+                 "global_step": int(self.global_step),
+                 "seed": int(self.job.seed), "task": self.task,
+                 "num_trainers": int(self.num_trainers),
+                 "batches_per_epoch": int(self.batches_per_epoch)}
+        tmp = os.path.join(directory, "state.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, os.path.join(directory, "state.json"))
+
+    def recover(self, directory: str) -> dict:
+        """Restore a :meth:`save_checkpoint` into THIS trainer and arm the
+        deterministic fast-forward: the next ``train_epoch()`` must target
+        the saved epoch and resumes at the saved batch, after which every
+        remaining batch — schedules and neighbor draws — is byte-identical
+        to the uninterrupted run's (the counter-based RNG keys every draw
+        by (seed, epoch, batch, stream), DESIGN.md §7). The world must
+        match the checkpoint (same seed/task/trainer count/batch count) —
+        anything else cannot replay byte-exactly and raises. Returns the
+        checkpoint's coordinate metadata."""
+        with open(os.path.join(directory, "state.json")) as f:
+            state = json.load(f)
+        mine = {"seed": int(self.job.seed), "task": self.task,
+                "num_trainers": int(self.num_trainers),
+                "batches_per_epoch": int(self.batches_per_epoch)}
+        for key, want in mine.items():
+            if state[key] != want:
+                raise ValueError(
+                    f"checkpoint {key}={state[key]!r} does not match this "
+                    f"trainer's {key}={want!r} — deterministic replay "
+                    f"needs an identically-configured world")
+        # fast-forward needs fresh pipelines: drain whatever is in flight
+        self.stop()
+        self.params = load_pytree(self.params,
+                                  os.path.join(directory, "params"))
+        self.opt = load_pytree(self.opt, os.path.join(directory, "opt"))
+        # order matters: restoring the shards flushes every live cache and
+        # reinstates the version tables the cache snapshots validate
+        # against — so a restored cache can never serve stale rows
+        load_kvstore(self.store, os.path.join(directory, "kvstore"))
+        for ti, cache in enumerate(self.caches):
+            cdir = os.path.join(directory, f"cache{ti}")
+            if cache is not None and os.path.isdir(cdir):
+                load_cache(cache, cdir)
+        self.global_step = int(state["global_step"])
+        self._resume = (int(state["epoch"]), int(state["batch_index"]))
+        return state
 
     def stop(self):
         for ld in self.loaders:

@@ -11,10 +11,12 @@ held against the plain versions on the card by ``chip_smoke.py``.
 """
 import torch
 
+from repro_torch.core.kvstore import embedding
 from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.fused_edge_softmax_aggregate import ops as k3_ops
 from repro_torch.kernels.fused_gather_aggregate import ops as k1_ops
 from repro_torch.kernels.segment_sum import ops as k2_ops
+from repro_torch.kernels.sparse_adam import ops as k5_ops
 from repro_torch.models.gnn import layers
 
 
@@ -101,6 +103,22 @@ def fused_edge_softmax_aggregate_bwd(grad, h_proj, out, alpha, edge_src,
     return ds
 
 
+def sparse_adam(w, m, v, rows, cm, cv, bc1, bc2, *, beta1, beta2, lr,
+                eps):
+    """K5's update, one float32 operation at a time in the kernel's
+    order, in place on the rows."""
+    sparse_adam.launches += 1
+    r = rows.long()
+    mm = beta1 * m[r] + cm
+    vv = beta2 * v[r] + cv
+    mhat = mm / bc1[:, None]
+    vhat = vv / bc2[:, None]
+    # the kernel's __fsqrt_rn is correctly rounded; so is this
+    w[r] = w[r] - (lr * mhat) / (torch.sqrt(vhat.double()).float() + eps)
+    m[r] = mm
+    v[r] = vv
+
+
 STAND_INS = {
     "fused_gather_aggregate": fused_gather_aggregate,
     "segment_sum": segment_sum,
@@ -109,6 +127,7 @@ STAND_INS = {
     "edge_softmax_norm": edge_softmax_norm,
     "fused_edge_softmax_aggregate": fused_edge_softmax_aggregate,
     "fused_edge_softmax_aggregate_bwd": fused_edge_softmax_aggregate_bwd,
+    "sparse_adam": sparse_adam,
 }
 
 
@@ -118,11 +137,14 @@ def _card_path(impl, x):
 
 def emulate_cuda(monkeypatch) -> dict:
     """Route every op's card path to the stand-ins, for CPU tensors; the
-    launch counts start at 0. Returns the stand-ins by kernel name."""
+    launch counts start at 0. ``DistEmbedding`` takes the card's route
+    (staged rows, K5) on the CPU too. Returns the stand-ins by kernel
+    name."""
     for fn in STAND_INS.values():
         fn.launches = 0
-    for mod in (layers, k1_ops, k2_ops, k3_ops, es_ops):
+    for mod in (layers, k1_ops, k2_ops, k3_ops, es_ops, k5_ops):
         monkeypatch.setattr(mod, "resolve_impl", _card_path)
+    monkeypatch.setattr(embedding, "_stages_rows", lambda device: True)
     patches = [
         (k1_ops, "fused_gather_aggregate_cuda", fused_gather_aggregate),
         (k1_ops, "src_scatter_cuda", src_scatter),
@@ -136,6 +158,7 @@ def emulate_cuda(monkeypatch) -> dict:
         (k3_ops, "src_scatter_cuda", src_scatter),
         (es_ops, "edge_softmax_stats_cuda", edge_softmax_stats),
         (es_ops, "edge_softmax_norm_cuda", edge_softmax_norm),
+        (k5_ops, "sparse_adam_cuda", sparse_adam),
     ]
     for mod, name, fn in patches:
         monkeypatch.setattr(mod, name, fn)

@@ -45,6 +45,8 @@ def test_port_imports_with_jax_unimportable():
         "from repro_torch import DistGNNTrainer, NodeDataLoader\n"
         "import repro_torch.configs, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.optim, repro_torch.training\n"
+        "import repro_torch.checkpoint\n"
+        "from repro_torch import DistEmbedding, SparseAdamConfig\n"
         "assert InferenceServer.__module__ == 'repro_torch.api.inference'\n"
         "assert DistGNNTrainer.__module__ == 'repro_torch.training.trainer'\n"
         "gnn_serve.build_parser().parse_args(['--device', 'cpu'])\n"
