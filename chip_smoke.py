@@ -9,7 +9,16 @@ Phases, each of which exits non-zero when it fails:
 2. build    -- builds every CUDA kernel of the port with ``nvcc`` for
                sm_90a from ``src/repro_torch/csrc`` (one process per
                source, all at once).
-3. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
+3. src_scatter -- the source-keyed kernel (K1's backward, K3's backward
+               into h_proj) on synthetic blocks at the edges of its
+               chunking: one source row with all of 100,000 live edges,
+               rows of exactly C, C - 1, C + 1 and 3C edges at and off
+               chunk boundaries, a skewed power-law block, a block with no
+               live edge, F = 100 on the scalar path and F = 16 with 2
+               heads of 8; unweighted and weighted, each against
+               ``src_scatter_ref``, empty rows exactly 0, two launches
+               bitwise equal.
+4. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
                real batch at the paper's config (batch 1000, fanouts
                15/10/5; GraphSAGE and GAT share it) and holds each kernel
                against its plain PyTorch version on the card at the shapes
@@ -35,7 +44,7 @@ Phases, each of which exits non-zero when it fails:
                float32 with int32 and int64 indices and in bfloat16,
                exactly equal to ``table[idx]``; timed against
                ``torch.index_select``).
-4. serving  -- a main path: ``repro_torch.launch.gnn_serve`` at its
+5. serving  -- a main path: ``repro_torch.launch.gnn_serve`` at its
                defaults (batch 8, micro-batch capacity 8) with GraphSAGE
                at full width (in 100, hidden 256, 16 classes, 3 layers),
                with every kernel's launch count set to 0 just before and
@@ -44,10 +53,10 @@ Phases, each of which exits non-zero when it fails:
                against the same request co-batched (identical bytes);
                then where one full tick's time goes, from the spans of a
                server built as ``gnn_serve`` builds it, and K1 and K2
-               again on that server's last tick, as in phase 3.
-5. paper    -- one 1000-node request with ``batch_size=1000`` and capacity
+               again on that server's last tick, as in phase 4.
+6. paper    -- one 1000-node request with ``batch_size=1000`` and capacity
                1; the kernel path against ``impl="ref"``.
-6. training -- the other main paths: ``repro_torch.launch.train`` for one
+7. training -- the other main paths: ``repro_torch.launch.train`` for one
                epoch of synchronous training on product-sim scale 14, GAT
                and then GraphSAGE at full width, 2 machines x 2 trainers,
                batch 128 (3 steps), each with every launch count set to 0
@@ -57,14 +66,14 @@ Phases, each of which exits non-zero when it fails:
                second identical run that must end with bitwise-identical
                parameters, where one step's time goes (from the second
                run's spans), and the path's kernels again on the first
-               step's stacked batch, as in phase 3.
-7. recovery -- kill-and-revive through ``repro_torch.launch.train``
-               (GraphSAGE as in phase 6, 2 epochs, a 64 MB cache,
+               step's stacked batch, as in phase 4.
+8. recovery -- kill-and-revive through ``repro_torch.launch.train``
+               (GraphSAGE as in phase 7, 2 epochs, a 64 MB cache,
                checkpoints every 2 steps) killed at (epoch 1, batch 2):
                it must revive from the (epoch 1, batch 1) checkpoint and
                end with parameters bitwise equal to the same command
                without the fault; the revived run is counted.
-8. embedding -- the slice-3 path: ``DistEmbedding(device="cuda")`` over
+9. embedding -- the slice-3 path: ``DistEmbedding(device="cuda")`` over
                the same 1,134,649 x 128 rows on 2 owners with replication
                2, 4 pushes of 250,000 seeded ids with duplicates from
                client 0, counted (K5 must launch once for each owner a
@@ -73,7 +82,7 @@ Phases, each of which exits non-zero when it fails:
                NumPy oracle; a checkpoint after push 2, restored into a
                fresh store, gives the same bytes after pushes 3-4; then
                where a push's time goes.
-9. report   -- a JSON line of every ported kernel (its times summed over
+10. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; K5
@@ -236,6 +245,11 @@ def stable_order(torch):
         yield
     finally:
         torch.use_deterministic_algorithms(was_on, warn_only=was_warn_only)
+
+
+def max_degree(torch, keys) -> int:
+    """The most live edges any one key holds (0 for none)."""
+    return int(torch.bincount(keys.long()).max()) if keys.numel() else 0
 
 
 def check_close(torch, got, want, rtol, atol, what) -> None:
@@ -429,7 +443,7 @@ def k1_bwd_case(torch, label, h, block, num_dst, groups, on_path,
     case = {
         "case": f"K1 backward {label}", "V": v, "F": f, "E": es.numel(),
         "E_live": int(live.numel()), "num_dst": num_dst,
-        "on_path": on_path,
+        "max_src_degree": max_degree(torch, es[live]), "on_path": on_path,
         "kernel_ms": cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed,
                                                              by_src)),
         "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(
@@ -668,7 +682,8 @@ def gat_cases(torch, tag, batch, caps, params) -> dict:
                        + v * f * 4)
         add_case(results["fused_edge_softmax_aggregate_bwd_h"],
                  f"K3 backward d h_proj {label}",
-                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
+                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n,
+                      max_src_degree=max_degree(torch, es[live])),
                  cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed, by_src,
                                                          weights=a1)),
                  cuda_ms(torch, lambda: torch.autograd.grad(
@@ -693,6 +708,105 @@ def add_case(results, label, shapes, kernel_ms, plain_ms, library_ms,
             "max_abs_err": err}
     results.append(case)
     log(f"[kernels] {json.dumps(case)}")
+
+
+def _scatter_block(torch, rng, degrees, v, num_dst, pad):
+    """A synthetic source-keyed block: ``degrees`` maps a source row to its
+    live edges, each to a seeded destination; ``pad`` masked slots (src 0,
+    dst 0, as ``pad_block`` pads) are mixed in; the slots are shuffled, so
+    the source-grouped order is not the slot order."""
+    src = np.repeat(np.array(list(degrees), dtype=np.int32),
+                    list(degrees.values()))
+    dst = rng.integers(0, num_dst, src.size).astype(np.int32)
+    mask = np.r_[np.ones(src.size, bool), np.zeros(pad, bool)]
+    src = np.r_[src, np.zeros(pad, np.int32)]
+    dst = np.r_[dst, np.zeros(pad, np.int32)]
+    perm = rng.permutation(src.size)
+    return [torch.from_numpy(np.ascontiguousarray(a[perm])).to(DEVICE)
+            for a in (src, dst, mask)]
+
+
+def phase_src_scatter(torch) -> list:
+    """The source-keyed kernel (K1's backward, K3's backward into h_proj)
+    on synthetic blocks that put its chunk and carry bookkeeping to the
+    test: one source row holding all of 100,000 live edges; rows of
+    exactly C, C - 1, C + 1 and 3C edges, rows that start at a chunk
+    boundary and mid-chunk; a block with no live edge; F = 100 on the
+    scalar path (H = 2 heads of 50, and unweighted from an unaligned
+    gradient); F = 16 with H = 2, Dh = 8. Unweighted and weighted, each
+    held against ``src_scatter_ref`` under ``stable_order`` within
+    rtol = atol = 1e-5 (the kernel sums in the plain version's order, so
+    the error is expected to be 0), rows with no live edge exactly 0, and
+    two launches bitwise equal."""
+    from repro_torch.kernels import (src_groups, src_scatter_cuda,
+                                     src_scatter_ref)
+    from repro_torch.kernels.src_scatter.kernel import CHUNK as C
+
+    rng = np.random.default_rng(5)
+    edge_degrees = [C, C - 1, 1, C + 1, 3 * C, 2, C + 1, C - 1, 3 * C, C,
+                    5, 2 * C + 3]
+    boundary = {r * 4 + 1: d for r, d in enumerate(edge_degrees)}
+    skewed = {int(r): int(d) for r, d in enumerate(
+        rng.zipf(1.6, 3000).clip(0, 900)) if d and r % 3}
+    # (name, degrees by row, V, num_dst, masked slots, F, H of the
+    #  weighted case, unaligned unweighted gradient)
+    specs = [
+        ("star", {11: 100_000}, 64, 4096, 5000, 256, 2, False),
+        ("degrees C-1..3C at and off chunk boundaries", boundary,
+         4 * len(edge_degrees) + 3, 300, 700, 256, 2, False),
+        ("skewed", skewed, 3000, 500, 2000, 256, 2, False),
+        ("no live edge", {}, 300, 40, 500, 256, 2, False),
+        ("F=100 scalar", skewed, 3000, 500, 2000, 100, 2, True),
+        ("F=16 H=2 Dh=8", skewed, 3000, 500, 2000, 16, 2, False),
+    ]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    cases = []
+    for name, degrees, v, n, pad, f, heads, unaligned in specs:
+        es, ed, em = _scatter_block(torch, rng, degrees, v, n, pad)
+        by_src = src_groups(es, em, v)
+        offsets = by_src.offsets.cpu().numpy()
+        starts = offsets[:-1][np.diff(offsets) > 0]
+        if name.startswith("degrees"):
+            deg = np.diff(offsets)
+            require(bool(((offsets[:-1] % C == 0) & (offsets[:-1] > 0)
+                          & (deg > 1)).any())
+                    and bool((starts % C != 0).any())
+                    and bool(np.isin([C - 1, C, C + 1, 3 * C], deg).all()),
+                    "the boundary block lacks a row of degree C-1, C, C+1 "
+                    "or 3C, or one starting at or off a chunk boundary")
+        grad = torch.randn((n, f), generator=gen, device=DEVICE)
+        w = torch.rand((es.numel(), heads), generator=gen, device=DEVICE)
+        # unweighted F = 100 takes float4 columns when the gradient is
+        # aligned: 4 bytes past a 16-byte boundary sends it to scalars
+        g_u = (torch.empty(n * f + 1, device=DEVICE)[1:].view(n, f)
+               .copy_(grad) if unaligned else grad)
+        empty = torch.from_numpy(np.diff(offsets) == 0).to(DEVICE)
+        for weights in (None, w):
+            g = g_u if weights is None else grad
+            kind = "unweighted" if weights is None else f"weighted, H={heads}"
+            label = f"src_scatter {name} ({kind})"
+            out1 = src_scatter_cuda(g, ed, by_src, weights)
+            out2 = src_scatter_cuda(g, ed, by_src, weights)
+            with stable_order(torch):
+                plain = src_scatter_ref(g, es, ed, em, v, weights)
+            torch.cuda.synchronize()
+            require(torch.equal(out1, out2), f"{label}: two runs differ")
+            check_close(torch, out1, plain, 1e-5, 1e-5, label)
+            require(not bool(out1[empty].any()),
+                    f"{label}: a row with no live edge is not zero")
+            dh = f if weights is None else f // heads
+            case = {"case": label, "V": v, "F": f, "E": es.numel(),
+                    "E_live": int(em.sum()),
+                    "max_src_degree": max_degree(torch, es[em]),
+                    "chunk": C,
+                    "float4": f % 4 == 0 and dh % 4 == 0
+                    and g.data_ptr() % 16 == 0,
+                    "kernel_ms": cuda_ms(torch, lambda: src_scatter_cuda(
+                        g, ed, by_src, weights)),
+                    "max_abs_err": max_err(torch, out1, plain)}
+            cases.append(case)
+            log(f"[src_scatter] {json.dumps(case)}")
+    return cases
 
 
 def phase_kernels(torch, g, cfg, params) -> tuple:
@@ -1361,6 +1475,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phase_src_scatter(torch)
 
     args = gnn_serve.build_parser().parse_args(
         ["--scale", str(SCALE), "--device", "cuda"])

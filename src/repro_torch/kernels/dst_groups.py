@@ -7,7 +7,10 @@ destination or source, and ``pad_block`` pads ``edge_src`` and
 per key without atomics, so each block gets a STABLE sort of its edges by
 key (the key where the mask is set, ``num_keys`` where it is not) and the
 CSR offsets of the live keys: every key then sums its live edges in their
-original order, and padded edges sort past ``offsets[num_keys]``.
+original order, and padded edges sort past ``offsets[num_keys]``. The
+sorted keys are kept too: a kernel that splits the order into chunks of
+edges (the source-keyed ``src_scatter``) reads each position's key
+directly.
 
 Forward reductions (K1, K2, K3 and K4's statistics) are keyed by ``dst``
 (:func:`dst_groups`); backward reductions into source rows (K1's and K3's
@@ -28,6 +31,8 @@ class EdgeGroups:
     offsets: torch.Tensor   # (num_groups + 1,) int32: live edges of key k
                             # are order[offsets[k]:offsets[k + 1]]
     num_groups: int
+    keys: torch.Tensor      # (E,) int32: the sorted keys, keys[i] the key
+                            # of order[i] (num_groups past offsets[-1])
 
 
 def edge_groups(keys: torch.Tensor, edge_mask: torch.Tensor,
@@ -44,7 +49,8 @@ def edge_groups(keys: torch.Tensor, edge_mask: torch.Tensor,
     bounds = torch.arange(num_groups + 1, dtype=torch.int32,
                           device=keys.device)
     offsets = torch.searchsorted(sorted_keys, bounds, out_int32=True)
-    return EdgeGroups(order.to(torch.int32), offsets, int(num_groups))
+    return EdgeGroups(order.to(torch.int32), offsets, int(num_groups),
+                      sorted_keys)
 
 
 def dst_groups(edge_dst: torch.Tensor, edge_mask: torch.Tensor,

@@ -9,6 +9,7 @@ adds sequentially), and counts its launches like the wrapper it replaces.
 that takes the card's path for CPU tensors. The kernels themselves are
 held against the plain versions on the card by ``chip_smoke.py``.
 """
+import numpy as np
 import torch
 
 from repro_torch.core.kvstore import embedding
@@ -17,6 +18,7 @@ from repro_torch.kernels.fused_edge_softmax_aggregate import ops as k3_ops
 from repro_torch.kernels.fused_gather_aggregate import ops as k1_ops
 from repro_torch.kernels.segment_sum import ops as k2_ops
 from repro_torch.kernels.sparse_adam import ops as k5_ops
+from repro_torch.kernels.src_scatter.kernel import CHUNK
 from repro_torch.models.gnn import layers
 
 
@@ -51,15 +53,73 @@ def segment_sum(msg, groups):
     return _grouped_sum(msg[edges], keys, groups.num_groups)
 
 
-def src_scatter(grad, edge_dst, groups, weights=None):
-    src_scatter.launches += 1
-    edges, keys = _live(groups)
-    rows = grad[edge_dst[edges].long()]
+def chunk_plan(keys, offsets, chunk=CHUNK):
+    """The bookkeeping of ``csrc/src_scatter.cu``'s chunk warps, chunk by
+    chunk in ticket order (chunk k waits only on chunk k - 1): the live
+    positions ``[0, offsets[-1])`` cut into chunks of ``chunk``, and per
+    chunk its row segments in the order the warp sums them, as (row,
+    begin, end, start, finish). ``start`` is "zero", or "carry" where the
+    segment goes on from the running sum the previous chunk published;
+    ``finish`` is "out" (the row's sum is stored), or "carry" where the
+    row goes on past the chunk and its running sum is published. A warp
+    sums the segments after its first, publishing, before its first,
+    which may wait for a carry."""
+    keys = np.asarray(keys)
+    n_live = int(offsets[-1])
+    plan = []
+    for p0 in range(0, n_live, chunk):
+        n = min(chunk, n_live - p0)
+        ks = keys[p0:p0 + n]
+        cont_before = p0 > 0 and keys[p0 - 1] == ks[0]
+        cont_after = p0 + n < n_live and keys[p0 + n] == ks[-1]
+        starts = (np.flatnonzero(ks[1:] != ks[:-1]) + 1).tolist()
+        b1 = starts[0] if starts else n
+        segs = []
+        for beg, end, carried in ((b1, n, False), (0, b1, cont_before)):
+            if beg == end:
+                continue
+            bounds = [beg] + [b for b in starts if beg < b < end] + [end]
+            for i, (b, e) in enumerate(zip(bounds[:-1], bounds[1:])):
+                segs.append((int(ks[b]), p0 + b, p0 + e,
+                             "carry" if carried and i == 0 else "zero",
+                             "carry" if e == n and cont_after else "out"))
+        plan.append(segs)
+    return plan
+
+
+def src_scatter_chunked(grad, edge_dst, groups, weights=None, chunk=CHUNK):
+    """What the kernel computes, as it computes it: each row's terms (the
+    products rounded first) added one at a time in position order, from 0
+    or from the previous chunk's carry; rows with no live edge zero."""
+    n_live = int(groups.offsets[-1])
+    edges = groups.order[:n_live].long()
+    terms = grad[edge_dst[edges].long()]
     if weights is not None:
         h = weights.shape[1]
-        rows = (rows.view(len(edges), h, rows.shape[1] // h)
-                * weights[edges][:, :, None]).reshape(rows.shape)
-    return _grouped_sum(rows, keys, groups.num_groups)
+        terms = (terms.view(n_live, h, terms.shape[1] // h)
+                 * weights[edges][:, :, None]).reshape(terms.shape)
+    out = torch.zeros((groups.num_groups, grad.shape[1]), dtype=grad.dtype)
+    carry = None
+    for segs in chunk_plan(groups.keys.numpy(), groups.offsets.numpy(),
+                           chunk):
+        published = None
+        for row, b, e, start, finish in segs:
+            acc = (carry.clone() if start == "carry"
+                   else torch.zeros_like(out[row]))[None]
+            acc.index_add_(0, torch.zeros(e - b, dtype=torch.long),
+                           terms[b:e])
+            acc = acc[0]
+            if finish == "carry":
+                published = acc
+            else:
+                out[row] = acc
+        carry = published
+    return out
+
+
+def src_scatter(grad, edge_dst, groups, weights=None):
+    src_scatter.launches += 1
+    return src_scatter_chunked(grad, edge_dst, groups, weights)
 
 
 def edge_softmax_stats(scores, groups):
