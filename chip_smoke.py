@@ -18,6 +18,15 @@ Phases, each of which exits non-zero when it fails:
                heads of 8; unweighted and weighted, each against
                ``src_scatter_ref``, empty rows exactly 0, two launches
                bitwise equal.
+   segments -- K2 and K1's forward on a synthetic block at the edges of
+               their schedules: groups of 0, 1, 15, 31, 32, 33, 64 and 308
+               live edges and one of 100,000, and of one less, as many and
+               one more than each schedule's batch; F = 1, 2, 3, 100
+               (float4 and scalar columns) and 256; K2 in float32 and
+               bfloat16; unit-scale values that nearly cancel. Each output
+               bitwise the plain version's computed on the CPU (in
+               bfloat16 the float32 sum rounded once) and a second
+               launch's.
 4. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
                real batch at the paper's config (batch 1000, fanouts
                15/10/5; GraphSAGE and GAT share it) and holds each kernel
@@ -28,8 +37,10 @@ Phases, each of which exits non-zero when it fails:
                GraphSAGE weights; K4's statistics and normalize kernels,
                K3's forward and its backward into the scores and into
                h_proj with the GAT weights (in 100, hidden 256, 2 heads),
-               on each of the 3 layers. Backward kernels are held against
-               ``torch.autograd.grad`` through the plain versions. Two runs
+               and K2 as GAT's logit gradients (F = 2, keyed by source and
+               by destination), on each of the 3 layers. Backward kernels
+               are held against ``torch.autograd.grad`` through the plain
+               versions. Two runs
                of a kernel must be bitwise equal. Each case prints the
                kernel's time, the plain version's, one PyTorch library
                call's where one computes the same function (a yardstick the
@@ -92,7 +103,9 @@ Phases, each of which exits non-zero when it fails:
 
 Tolerances: a kernel against its plain version in float32 rtol = atol =
 1e-5 (degrees are integers and compare exactly), in bfloat16 rtol = 0.1,
-atol = 0.5; served logits against ``impl="ref"`` rtol = 1e-4, atol = 1e-5,
+atol = 0.5; K1 and K2 besides bitwise (float32; K2 in bfloat16 against
+the float32 sum rounded once), since they add in the plain version's
+order; served logits against ``impl="ref"`` rtol = 1e-4, atol = 1e-5,
 and a training step's loss and gradients against ``impl="ref"`` rtol =
 1e-4, atol = 1e-5 (the plain versions' ``index_add_`` adds with atomics,
 in another order). K5, K6, the embedding path and recovery compare
@@ -133,6 +146,7 @@ EMB_PUSHES, EMB_IDS = 4, 250_000
 K6_TABLE_ROWS, K6_WIDTH, K6_ROWS = 2_449_029, 100, 1_056_000
 
 K1 = "src/repro/kernels/fused_gather_aggregate/kernel.py:58"
+K2 = "src/repro/kernels/segment_sum/kernel.py:55"
 K3 = "src/repro/kernels/fused_edge_softmax_aggregate/kernel.py:63"
 K4 = "src/repro/kernels/edge_softmax/kernel.py:69"
 CSRC = "src/repro_torch/csrc/"
@@ -143,10 +157,14 @@ KERNELS = {
         wrapper="fused_gather_aggregate",
         source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
         paths=("serving", "train_graphsage", "train_recover")),
+    # K2 as `_degrees` (F = 1), and as the GAT step's logit gradients
+    # (F = 2, keyed by source and by destination)
     "segment_sum": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
-        replaces="src/repro/kernels/segment_sum/kernel.py:55",
-        paths=("serving", "train_graphsage", "train_gat", "train_recover")),
+        replaces=K2, paths=("serving", "train_graphsage", "train_recover")),
+    "segment_sum_gat": dict(
+        wrapper="segment_sum", source=CSRC + "segment_sum.cu",
+        replaces=K2, paths=("train_gat",)),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
         paths=("train_graphsage", "train_recover")),
@@ -285,9 +303,8 @@ def phase_build() -> None:
     log(f"[build] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s with {_cuda.nvcc_path()}")
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for fn, resources in _cuda.kernel_resources(info["log"]).items():
+            log(f"[build] {name}: {fn}: {resources}")
     for name in _cuda.KERNELS:
         _cuda.load(name)
 
@@ -323,6 +340,8 @@ def k1_case(torch, label, h, block, num_dst, groups, results):
     what = f"fused_gather_aggregate {label}"
     require(torch.equal(out1, out2), f"{what}: two runs differ")
     check_close(torch, out1, plain, 1e-5, 1e-5, what)
+    require(torch.equal(out1, plain), f"{what}: not bitwise the plain "
+                                      f"version's sum in the stable order")
 
     live = em.nonzero().squeeze(1)
     v, f = h.shape
@@ -355,6 +374,22 @@ def k1_case(torch, label, h, block, num_dst, groups, results):
     log(f"[kernels] {json.dumps(case)}")
 
 
+def require_exact_sum(torch, got, plain, msg, keys, mask, num_groups, what):
+    """K2 sums every group in float32 from 0, one edge at a time in the
+    stable order: in float32 its output is bitwise the plain version's
+    under ``stable_order``; in bfloat16, bitwise the plain version's
+    float32 sum rounded once (the bfloat16 plain version rounds after
+    every add, so it is held within the bfloat16 tolerance instead)."""
+    from repro_torch.kernels import segment_sum_ref
+
+    if msg.dtype != torch.float32:
+        with stable_order(torch):
+            plain = segment_sum_ref(msg.float(), keys, mask,
+                                    num_groups).to(msg.dtype)
+    require(torch.equal(got, plain), f"{what}: not bitwise the plain "
+                                     f"version's sum in the stable order")
+
+
 def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     from repro_torch.kernels import segment_sum_cuda, segment_sum_ref
 
@@ -367,6 +402,7 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     what = f"segment_sum {label}"
     require(torch.equal(out1, out2), f"{what}: two runs differ")
     check_close(torch, out1, plain, rtol, atol, what)
+    require_exact_sum(torch, out1, plain, msg, ed, em, num_dst, what)
 
     e, f = msg.shape
     isz = msg.element_size()
@@ -537,7 +573,7 @@ def gat_cases(torch, tag, batch, caps, params) -> dict:
     names = ("edge_softmax_stats", "edge_softmax_norm",
              "fused_edge_softmax_aggregate",
              "fused_edge_softmax_aggregate_bwd",
-             "fused_edge_softmax_aggregate_bwd_h")
+             "fused_edge_softmax_aggregate_bwd_h", "segment_sum_gat")
     results = {k: [] for k in names}
     h = batch["input_feats"]
     last = len(batch["blocks"]) - 1
@@ -693,6 +729,19 @@ def gat_cases(torch, tag, batch, caps, params) -> dict:
                  bound(bwd_h_bytes, 2 * f * e_live),
                  max_err(torch, got[0], want[0]))
         del plain_graph, want, got, hp_g, sc_g, att, att_t
+
+        # K2 as the GAT step runs it, in gather_edges' backward: the
+        # gradients (E, H) of the source and the destination logits summed
+        # by source row (groups of up to hundreds of edges) and by
+        # destination
+        msg = torch.randn((e, heads), generator=gen, device="cuda")
+        for key, keys, groups, num in (("source", es, by_src, v),
+                                       ("destination", ed, by_dst, n)):
+            k2_case(torch, f"GAT logit gradient by {key} {label} (largest "
+                           f"group {max_degree(torch, keys[live])})", msg,
+                    {"edge_dst": keys, "edge_mask": em}, num, groups,
+                    results["segment_sum_gat"], 1e-5, 1e-5)
+        del msg
         with torch.no_grad():
             h = gat_layer(p, h, block, caps[layer],
                           activation=None if layer == last else F.elu,
@@ -806,6 +855,153 @@ def phase_src_scatter(torch) -> list:
                     "max_abs_err": max_err(torch, out1, plain)}
             cases.append(case)
             log(f"[src_scatter] {json.dumps(case)}")
+    return cases
+
+
+STAR_EDGES = 100_000
+
+
+def _cancelling(rng, keys, mask, f, num_keys):
+    """Unit-scale rows whose live ones nearly cancel within each key (the
+    key's float64 mean taken off before rounding to float32): each group's
+    sum is rounding noise, whose last bits depend on the order of the
+    adds."""
+    x = rng.standard_normal((keys.size, f))
+    live = np.flatnonzero(mask)
+    sums = np.zeros((num_keys, f))
+    np.add.at(sums, keys[live], x[live])
+    counts = np.bincount(keys[live], minlength=num_keys)[:, None]
+    x[live] -= (sums / np.maximum(counts, 1))[keys[live]]
+    return x.astype(np.float32)
+
+
+def phase_segments(torch) -> list:
+    """K2 and K1's forward on a synthetic destination-keyed block at the
+    edges of their schedules: groups of 0, 1, 15, 31, 32, 33, 64 and 308
+    live edges, of one less, as many and one more than each schedule's
+    batch (sub-warp lanes and a lanes-across-edges batch; U rows in flight
+    at each width), every other group empty, and one group of 100,000
+    edges; K1 also on that run repeated past FEW_DST and past MANY_DST
+    destinations (its two smaller register budgets); F = 1, 2 and 3 (K2's
+    lanes across edges), 100 (float4 columns, and scalar ones from a view
+    4 bytes past a 16-byte boundary) and 256; K2 in float32 and
+    bfloat16. Values are unit-scale and nearly cancel
+    within each group. K1 gathers each live slot's own row (``edge_src``
+    is the slot), so it sums the same values as K2, in the same order.
+    Every float32 output is bitwise the plain version's computed on the
+    CPU, where ``index_add_`` adds each group's edges one at a time in
+    order (on the card, PyTorch's deterministic ``index_add_`` sums a
+    group of 32 or more with a warp tree where F = 1, so there it is no
+    sequential oracle), and equal to a second launch; K1's equals K2's;
+    in bfloat16 K2 is bitwise the plain float32 sum rounded once, and
+    within rtol = 0.1, atol = 0.5 of the bfloat16 plain version on the
+    card on the groups of at most 64 edges (that version rounds after
+    every add: on a 308-edge group of cancelling values it drifts by
+    about 0.9); empty groups are exactly 0."""
+    from repro_torch.kernels.fused_gather_aggregate import kernel as k1
+    from repro_torch.kernels.segment_sum import kernel as k2
+
+    rng = np.random.default_rng(6)
+    edges = {k2.SUB_WARP, k2.SUB_WARP * k2.EDGE_LOADS}
+    rows = {k2.row_tiling(f // vec, vec, *consts)[2]
+            for f, vec in ((100, 4), (100, 1), (256, 4), (256, 1))
+            for consts in [(k2.GATHER_FLOATS, k2.MAX_VECS_PER_LANE)]
+            + [(gf, k1.MAX_VECS_PER_LANE) for gf in (
+                k1.GATHER_FLOATS_FEW, k1.GATHER_FLOATS_MID,
+                k1.GATHER_FLOATS_MANY)]}
+    lengths = sorted({0, 1, 15, 31, 32, 33, 64, 308}
+                     | {u + d for u in edges | rows for d in (-1, 0, 1)})
+    run = [x for n in lengths for x in (n, 0)]
+    cases = []
+    # K1's register budget follows the launch's size: the run repeated
+    # past FEW_DST and past MANY_DST destinations takes the other two
+    # (K1 alone)
+    for launch, reps in (("few", 1), ("mid", k1.FEW_DST // len(run) + 1),
+                         ("many", k1.MANY_DST // len(run) + 1)):
+        cases += _segment_cases(torch, rng, run * reps + [STAR_EDGES],
+                                launch)
+    return cases
+
+
+def _segment_cases(torch, rng, lengths, launch) -> list:
+    from repro_torch.kernels import (dst_groups, fused_gather_aggregate_cuda,
+                                     fused_gather_aggregate_ref,
+                                     segment_sum_cuda, segment_sum_ref)
+    from repro_torch.kernels.fused_gather_aggregate import kernel as k1
+    from repro_torch.kernels.segment_sum import kernel as k2
+
+    n = len(lengths)
+    dst = np.repeat(np.arange(n, dtype=np.int32), lengths)
+    mask = np.r_[np.ones(dst.size, bool), np.zeros(3000, bool)]
+    dst = np.r_[dst, np.zeros(3000, np.int32)]
+    perm = rng.permutation(dst.size)
+    dst, mask = dst[perm], mask[perm]
+    host = (torch.from_numpy(dst), torch.from_numpy(mask))
+    ed, em = (a.to(DEVICE) for a in host)
+    slots = torch.arange(dst.size, dtype=torch.int32, device=DEVICE)
+    groups = dst_groups(ed, em, n)
+    short = torch.from_numpy(np.array(lengths) <= 64).to(DEVICE)
+    empty = torch.from_numpy(np.array(lengths) == 0).to(DEVICE)
+    log(f"[segments] {n} groups of {sorted(set(lengths))} live edges, "
+        f"E={dst.size}; K1 gathers {k1.gather_floats(n)} floats a lane")
+
+    def held(label, got, again, plain, plain_bf16=None):
+        require(torch.equal(got, again), f"{label}: two runs differ")
+        require(torch.equal(got.cpu(), plain),
+                f"{label}: not bitwise the plain version's sum in the "
+                f"stable order (max abs err "
+                f"{max_err(torch, got.cpu(), plain):.3e})")
+        require(not bool(got[empty].any()),
+                f"{label}: a group with no live edge is not zero")
+        if plain_bf16 is not None:
+            check_close(torch, got[short], plain_bf16[short], 0.1, 0.5,
+                        label)
+
+    cases = []
+    for f in (1, 2, 3, 100, 256):
+        x = torch.from_numpy(_cancelling(rng, dst, mask, f, n)).to(DEVICE)
+        views = [("aligned", x)]
+        if f == 100:
+            odd = torch.empty(x.numel() + 1, device=DEVICE)[1:].view(
+                x.shape).copy_(x)
+            views.append(("4 bytes past 16", odd))
+        for where, m in views:
+            runs = [("K1", lambda: fused_gather_aggregate_cuda(m, slots,
+                                                               groups),
+                     fused_gather_aggregate_ref(m.cpu(), slots.cpu(), *host,
+                                                n))]
+            if launch == "few":
+                runs.append(("K2", lambda: segment_sum_cuda(m, groups),
+                             segment_sum_ref(m.cpu(), *host, n)))
+            if launch == "few" and where == "aligned":
+                mb = m.to(torch.bfloat16)
+                plain_b = segment_sum_ref(mb.float().cpu(), *host, n).to(
+                    torch.bfloat16)
+                with stable_order(torch):
+                    plain_bb = segment_sum_ref(mb, ed, em, n)
+                runs.append(("K2 bfloat16", lambda: segment_sum_cuda(
+                    mb, groups), plain_b))
+            outs = {}
+            for kernel, fn, want in runs:
+                label = f"{kernel} F={f} {where}, {n} groups"
+                outs[kernel] = fn()
+                again = fn()
+                torch.cuda.synchronize()
+                held(label, outs[kernel], again, want,
+                     plain_bb if kernel == "K2 bfloat16" else None)
+                case = {"case": label, "F": f, "E": dst.size,
+                        "E_live": int(mask.sum()), "groups": n,
+                        "schedule": (k2.schedule(f) if kernel != "K1"
+                                     else "rows"),
+                        "kernel_ms": cuda_ms(torch, fn),
+                        "max_abs_err": max_err(torch, outs[kernel].cpu(),
+                                               want)}
+                cases.append(case)
+                log(f"[segments] {json.dumps(case)}")
+            if "K2" in outs:
+                require(torch.equal(outs["K1"], outs["K2"]),
+                        f"K1 and K2 F={f} {where}: the same sums differ")
+        del x, views
     return cases
 
 
@@ -1430,6 +1626,9 @@ SHAPES = {
                               "(8 chunks x 8 seeds)",
     "segment_sum": "sum over the 3 layers of one serving tick (8 chunks x "
                    "8 seeds), as _degrees (F=1)",
+    "segment_sum_gat": "sum over the 3 layers of one GAT training step (4 "
+                       "trainers x 128 seeds), F=2 keyed by source and by "
+                       "destination (6 launches)",
     "fused_gather_aggregate_bwd": "sum over layers 1 and 2 of one "
                                   "GraphSAGE training step (4 trainers x "
                                   "128 seeds)",
@@ -1443,21 +1642,27 @@ GAT_SHAPES = ("sum over the 3 layers of one GAT training step (4 trainers "
               "x 128 seeds)")
 
 
-def report(primary: dict, paper: dict, launches: dict) -> dict:
+def report(primary: dict, paper: dict, launches: dict,
+           sage_step: dict) -> dict:
     """Per kernel: its times summed over the layers of the main path's
     shapes (a serving tick at the gnn_serve defaults, or a training step
     of launch.train), the same sums for one batch-1000 forward (and
-    backward) under ``paper_batch``, and its launches on each main path."""
+    backward) under ``paper_batch``, and its launches on each main path;
+    K1's forward and K2 as ``_degrees`` also at one GraphSAGE training
+    step (``train_graphsage_step``)."""
     out = []
     for name, meta in KERNELS.items():
         by_path = {p: launches[p][meta["wrapper"]] for p in meta["paths"]}
-        out.append({"name": name, "route": "cuda", "status": "ok",
-                    "source": meta["source"], "replaces": meta["replaces"],
-                    "launches": sum(by_path.values()),
-                    "launches_by_path": by_path, **_sums(primary[name]),
-                    "shapes": SHAPES.get(name, GAT_SHAPES),
-                    "paper_batch": (_sums(paper[name]) if name in paper
-                                    else None)})
+        row = {"name": name, "route": "cuda", "status": "ok",
+               "source": meta["source"], "replaces": meta["replaces"],
+               "launches": sum(by_path.values()),
+               "launches_by_path": by_path, **_sums(primary[name]),
+               "shapes": SHAPES.get(name, GAT_SHAPES),
+               "paper_batch": (_sums(paper[name]) if name in paper
+                               else None)}
+        if name in ("fused_gather_aggregate", "segment_sum"):
+            row["train_graphsage_step"] = _sums(sage_step[name])
+        out.append(row)
     return {"kernels": out}
 
 
@@ -1476,6 +1681,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     phase_src_scatter(torch)
+    phase_segments(torch)
 
     args = gnn_serve.build_parser().parse_args(
         ["--scale", str(SCALE), "--device", "cuda"])
@@ -1517,7 +1723,7 @@ def main() -> int:
     primary["sparse_adam"] = k5
     primary["gather_rows"] = k6[:1]
 
-    print(json.dumps(report(primary, paper, launches)))
+    print(json.dumps(report(primary, paper, launches, sage_train)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,6 +107,30 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+def kernel_resources(log: str) -> Dict[str, str]:
+    """Each kernel's ``-Xptxas -v`` report in a build log ("Used N
+    registers, ..." and its spill line), by its name demangled with the
+    toolkit's ``cu++filt`` where there is one."""
+    found, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        elif current and "spill" in line:
+            found[current] = line.strip()
+        elif current and "Used" in line and "registers" in line:
+            found[current] = (found.get(current, "") + "; "
+                              + line.split(":", 1)[-1].strip()).lstrip("; ")
+    filt = shutil.which("cu++filt", path=str(Path(nvcc_path()).parent))
+    if found and filt:
+        names = subprocess.run([filt], input="\n".join(found),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(found):
+            return dict(zip(names, found.values()))
+    return found
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,18 +7,56 @@ alignment allow, allocates the output, launches on PyTorch's current
 stream without synchronising, counts the launch in
 ``fused_gather_aggregate_cuda.launches`` and raises on a non-zero
 ``cudaError_t``. The library is built at the first call.
+
+A warp sums one destination with the whole row in its lanes (column
+vectors and slabs as :func:`~..segment_sum.kernel.row_tiling` gives them
+for :func:`gather_floats` of the launch), loads a batch's ``order`` and
+``edge_src`` once, and gathers U rows before it adds them in the stable
+order: the output is bitwise the plain version's under deterministic
+algorithms.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _cuda
 from ..dst_groups import EdgeGroups
 
+# csrc/fused_gather_aggregate.cu's design constants, in
+# fused_gather_aggregate_design's order: floats of gathered rows a lane
+# holds before the adds in a launch of at most FEW_DST destinations, at
+# most MANY_DST, and more; and column vectors a lane holds at most
+GATHER_FLOATS_FEW = 128
+GATHER_FLOATS_MID = 32
+GATHER_FLOATS_MANY = 16
+FEW_DST = 1024
+MANY_DST = 8192
+MAX_VECS_PER_LANE = 8
+DESIGN = (GATHER_FLOATS_FEW, GATHER_FLOATS_MID, GATHER_FLOATS_MANY, FEW_DST,
+          MANY_DST, MAX_VECS_PER_LANE)
+
+
+def gather_floats(num_dst: int) -> int:
+    """Floats of gathered rows a lane holds in a launch of ``num_dst``
+    destinations: more rows in flight for few, more resident warps for
+    many. No bit of the result depends on it."""
+    if num_dst > MANY_DST:
+        return GATHER_FLOATS_MANY
+    return GATHER_FLOATS_MID if num_dst > FEW_DST else GATHER_FLOATS_FEW
+
+
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [
     ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _library_design() -> tuple:
+    fn = _cuda.symbol("fused_gather_aggregate",
+                      "fused_gather_aggregate_design", [ctypes.c_int])
+    return tuple(fn(i) for i in range(len(DESIGN)))
 
 
 def fused_gather_aggregate_cuda(h_src: torch.Tensor, edge_src: torch.Tensor,
@@ -44,6 +82,10 @@ def fused_gather_aggregate_cuda(h_src: torch.Tensor, edge_src: torch.Tensor,
             or groups.order.numel() != edge_src.numel()):
         raise ValueError("groups must be built on h_src's device from the "
                          "same E edges")
+    if _library_design() != DESIGN:
+        raise RuntimeError(f"fused_gather_aggregate.cu's design constants "
+                           f"are {_library_design()}, the wrapper's "
+                           f"{DESIGN}")
     f = h_src.shape[1]
     out = torch.empty((groups.num_groups, f), dtype=torch.float32,
                       device=h_src.device)

@@ -223,3 +223,84 @@ def emulate_cuda(monkeypatch) -> dict:
     for mod, name, fn in patches:
         monkeypatch.setattr(mod, name, fn)
     return STAND_INS
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of K2's schedules (csrc/segment_sum.cu) and K1's forward schedule
+# (csrc/fused_gather_aggregate.cu), built from their kernel.py constants
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.segment_sum.kernel import (  # noqa: E402
+    EDGE_LOADS as K2_EDGE_LOADS, SUB_WARP as K2_SUB_WARP, row_tiling)
+
+def edge_schedule(offsets, sub_warp=K2_SUB_WARP, loads=K2_EDGE_LOADS):
+    """K2's lanes-across-edges schedule (F <= SMALL_F_MAX) over a grouped
+    order's ``offsets``. Group g belongs to sub-warp g % (32 // sub_warp)
+    of warp g // (32 // sub_warp); a warp runs as many batches as its
+    longest group needs. Returns, per warp, its batches; per batch, for each
+    of the warp's groups: (the order entries its lanes load in this batch,
+    the next batch's, as (lane, position); the message rows they load, as
+    (lane, position); the positions added, in the order they are added).
+    The first batch's order entries are loaded before the loop and listed
+    with the first batch."""
+    offsets = np.asarray(offsets)
+    per_warp, b = 32 // sub_warp, sub_warp * loads
+
+    def lanes(beg, end, base):
+        return [(s, base + r * sub_warp + s) for r in range(loads)
+                for s in range(sub_warp) if base + r * sub_warp + s < end]
+
+    warps = []
+    for w0 in range(0, len(offsets) - 1, per_warp):
+        groups = range(w0, min(w0 + per_warp, len(offsets) - 1))
+        n_batches = max(-(-int(offsets[g + 1] - offsets[g]) // b)
+                        for g in groups)
+        batches = []
+        for k in range(n_batches):
+            batch = {}
+            for g in groups:
+                beg, end = int(offsets[g]), int(offsets[g + 1])
+                base = beg + k * b
+                rows = lanes(beg, end, base)
+                index = lanes(beg, end, base + b)
+                if k == 0:
+                    index = rows + index
+                batch[g] = (index, rows, [p for _s, p in rows])
+            batches.append(batch)
+        warps.append(batches)
+    return warps
+
+
+def row_schedule(length, f, vec, gather_floats, max_vecs):
+    """The lanes-across-features schedule of one group of ``length`` live
+    positions (K2 for F > SMALL_F_MAX, and K1's forward, each with its own
+    constants): (NV, slabs, U) from ``row_tiling``, and per batch of 32
+    positions (the order entries lane i loads, and in K1 their source
+    indices, as (lane, position); the gather rounds, each the positions
+    whose rows are gathered before the first of them is added). The adds
+    run round by round, in order."""
+    nv, slabs, u = row_tiling(f // vec, vec, gather_floats, max_vecs)
+    batches = []
+    for base in range(0, length, 32):
+        n = min(32, length - base)
+        batches.append(([(i, base + i) for i in range(n)],
+                        [list(range(base + k0, base + min(k0 + u, n)))
+                         for k0 in range(0, n, u)]))
+    return (nv, slabs, u), batches
+
+
+def row_columns(cols, nv, slabs):
+    """The column vectors (slab, lane, j) of a row of ``cols`` vectors
+    hold: vector (slab * nv + j) * 32 + lane, where it is below cols."""
+    return [((s * nv + j) * 32 + lane, (s, lane, j)) for s in range(slabs)
+            for lane in range(32) for j in range(nv)
+            if (s * nv + j) * 32 + lane < cols]
+
+
+def replay(rows, adds):
+    """The kernel's arithmetic on the positions it adds, in order: a float32
+    sum from 0, one add at a time."""
+    acc = torch.zeros(rows.shape[1:], dtype=torch.float32)
+    for p in adds:
+        acc = acc + rows[p].float()
+    return acc
