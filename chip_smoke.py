@@ -27,6 +27,14 @@ Phases, each of which exits non-zero when it fails:
                bitwise the plain version's computed on the CPU (in
                bfloat16 the float32 sum rounded once) and a second
                launch's.
+   k3_segments -- K3's forward and its backward into the scores on a
+               synthetic block at the edges of their schedules: groups of
+               0, 1, 31, 32, 33, 64 and 308 live edges and one of 100,000;
+               H = 1, 2, 8 and 12 (the forward only) by Dh = 8, 128 and 3
+               (and H = 2, Dh = 128 on scalar columns); scores uniform over
+               +-80, so that exp underflows inside a group. Each output
+               within rtol = atol = 1e-5 of the plain version on the card,
+               equal to a second launch, empty groups and padded edges 0.
 4. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
                real batch at the paper's config (batch 1000, fanouts
                15/10/5; GraphSAGE and GAT share it) and holds each kernel
@@ -1005,6 +1013,115 @@ def _segment_cases(torch, rng, lengths, launch) -> list:
     return cases
 
 
+K3_LENGTHS = (0, 1, 31, 32, 33, 64, 308)
+
+
+def phase_k3_segments(torch) -> list:
+    """K3's forward and its backward into the scores on a synthetic
+    destination-keyed block at the edges of their schedules: groups of 0,
+    1, 31, 32, 33, 64 and 308 live edges, every other group empty, and one
+    of 100,000; H = 1, 2, 8 and 12 (12 the forward only: the backward
+    takes at most 8 heads) by Dh = 8, 128 and 3 (Dh = 3 on scalar columns,
+    the others on float4, and H = 2, Dh = 128 also on scalar columns from
+    a view 4 bytes past a 16-byte boundary); scores uniform over +-80, so
+    that exp underflows inside a group. K4's statistics and normalize
+    kernels give m, z and alpha as on the training path. Each output is
+    held within rtol = atol = 1e-5 of the plain version on the card under
+    ``stable_order`` (the forward against
+    ``fused_edge_softmax_aggregate_ref``, the backward against
+    ``torch.autograd.grad`` through it), equal to a second launch, empty
+    groups and padded edges exactly 0."""
+    from repro_torch.kernels import (
+        dst_groups, edge_softmax_norm_cuda, edge_softmax_stats_cuda,
+        fused_edge_softmax_aggregate_bwd_cuda,
+        fused_edge_softmax_aggregate_cuda, fused_edge_softmax_aggregate_ref)
+    from repro_torch.kernels.fused_edge_softmax_aggregate import kernel as k3
+
+    rng = np.random.default_rng(7)
+    lengths = [x for n in K3_LENGTHS for x in (n, 0)] + [STAR_EDGES]
+    n = len(lengths)
+    v = 4096
+    dst = np.repeat(np.arange(n, dtype=np.int32), lengths)
+    src = rng.integers(0, v, dst.size).astype(np.int32)
+    mask = np.r_[np.ones(dst.size, bool), np.zeros(3000, bool)]
+    src = np.r_[src, np.zeros(3000, np.int32)]
+    dst = np.r_[dst, np.zeros(3000, np.int32)]
+    perm = rng.permutation(dst.size)
+    es, ed, em = (torch.from_numpy(a[perm]).to(DEVICE)
+                  for a in (src, dst, mask))
+    groups = dst_groups(ed, em, n)
+    empty = torch.from_numpy(np.array(lengths) == 0).to(DEVICE)
+    e = es.numel()
+    log(f"[k3_segments] {n} groups of {sorted(set(lengths))} live edges, "
+        f"E={e}; {k3.GATHER_FLOATS} gathered floats a lane")
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    cases = []
+    for heads in (1, 2, 8, 12):
+        for d_h in (8, 128, 3):
+            hp = torch.randn((v, heads, d_h), generator=gen, device=DEVICE)
+            scores = (torch.rand((e, heads), generator=gen, device=DEVICE)
+                      * 160 - 80)
+            grad = torch.randn((n, heads * d_h), generator=gen,
+                               device=DEVICE)
+            views = [("aligned", hp)]
+            if (heads, d_h) == (2, 128):
+                views.append(("4 bytes past 16", torch.empty(
+                    hp.numel() + 1, device=DEVICE)[1:].view(hp.shape)
+                    .copy_(hp)))
+            m, z = edge_softmax_stats_cuda(scores, groups)
+            alpha = edge_softmax_norm_cuda(scores, ed, em, m, z)
+            sc_g = scores.detach().requires_grad_()
+            with stable_order(torch):
+                plain_graph = fused_edge_softmax_aggregate_ref(
+                    hp, sc_g, es, ed, em, n)
+                plain_ds = (torch.autograd.grad(plain_graph, sc_g, grad)[0]
+                            if heads <= k3.MAX_HEADS else None)
+            plain_out = plain_graph.detach()
+            del plain_graph
+            for where, h_in in views:
+                vec = 4 if d_h % 4 == 0 and where == "aligned" else 1
+                label = f"K3 H={heads} Dh={d_h} {where}"
+                fwd = lambda: fused_edge_softmax_aggregate_cuda(  # noqa: E731
+                    h_in, scores, es, groups, m, z)
+                out = fwd()
+                again = fwd()
+                torch.cuda.synchronize()
+                require(torch.equal(out, again), f"{label}: two runs differ")
+                check_close(torch, out, plain_out, 1e-5, 1e-5, label)
+                require(not bool(out[empty].any()),
+                        f"{label}: a group with no live edge is not zero")
+                case = {"case": label, "kernel": "forward", "H": heads,
+                        "Dh": d_h, "E": e, "groups": n,
+                        "plan": k3.launch_plan(False, heads, d_h,
+                                               vec == 4),
+                        "kernel_ms": cuda_ms(torch, fwd, reps=3),
+                        "max_abs_err": max_err(torch, out, plain_out)}
+                cases.append(case)
+                log(f"[k3_segments] {json.dumps(case)}")
+                if plain_ds is None:
+                    continue
+                bwd = lambda: fused_edge_softmax_aggregate_bwd_cuda(  # noqa: E731,E501
+                    grad, h_in, out, alpha, es, groups)
+                ds = bwd()
+                again = bwd()
+                torch.cuda.synchronize()
+                label = f"K3 backward d scores H={heads} Dh={d_h} {where}"
+                require(torch.equal(ds, again), f"{label}: two runs differ")
+                check_close(torch, ds, plain_ds, 1e-5, 1e-5, label)
+                require(not bool(ds[~em].any()),
+                        f"{label}: a padded edge's gradient is not zero")
+                case = {"case": label, "kernel": "backward", "H": heads,
+                        "Dh": d_h, "E": e, "groups": n,
+                        "plan": k3.launch_plan(True, heads, d_h,
+                                               vec == 4),
+                        "kernel_ms": cuda_ms(torch, bwd, reps=3),
+                        "max_abs_err": max_err(torch, ds, plain_ds)}
+                cases.append(case)
+                log(f"[k3_segments] {json.dumps(case)}")
+            del hp, scores, grad, views, plain_out, plain_ds, sc_g
+    return cases
+
+
 def phase_kernels(torch, g, cfg, params) -> tuple:
     """K1 (and its backward) and K2 at the paper's batch on the card, with
     the GraphSAGE weights; returns their cases and the staged batch."""
@@ -1682,6 +1799,7 @@ def main() -> int:
     phase_build()
     phase_src_scatter(torch)
     phase_segments(torch)
+    phase_k3_segments(torch)
 
     args = gnn_serve.build_parser().parse_args(
         ["--scale", str(SCALE), "--device", "cuda"])

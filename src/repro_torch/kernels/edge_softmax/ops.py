@@ -4,8 +4,9 @@ normalize) on a CUDA tensor, the plain version on a CPU tensor.
 
 K4 has no backward of its own: on the training path it runs inside K3
 (its statistics in the forward, its normalize in the backward). Given
-scores that require a gradient, the CUDA path raises rather than return
-an output that would silently cut the graph."""
+scores that require a gradient where autograd records, the CUDA path
+raises rather than return an output that would silently cut the graph;
+under ``torch.no_grad()`` no graph is built, and it runs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -25,7 +26,7 @@ def edge_softmax(scores: torch.Tensor, edge_dst: torch.Tensor,
     groups) is built here when not given."""
     if resolve_impl(impl, scores) == "ref":
         return edge_softmax_ref(scores, edge_dst, edge_mask, num_dst)
-    if scores.requires_grad:
+    if scores.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "edge_softmax on the card has no backward of its own; "
             "differentiate through fused_edge_softmax_aggregate (K3), or "

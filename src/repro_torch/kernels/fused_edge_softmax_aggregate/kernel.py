@@ -11,17 +11,68 @@ head width and the alignment allow, allocates its output, launches on
 PyTorch's current stream without synchronising, counts the launch in its
 own ``launches`` and raises on a non-zero ``cudaError_t``. The library is
 built at the first call.
+
+The forward walks each destination's live edges once with the whole row
+in a warp's lanes: lane k computes the alpha of edge k of a batch, U rows
+are gathered before the adds, and every column is summed in the stable
+order. The backward takes a warp a destination, or sub-warps of W lanes
+an edge where the heads are narrow; each (edge, head) dot product is
+reduced by the same butterfly either way. The library chooses each
+launch's layout and :func:`launch_plan` reads its choice. The constants
+are the library's compile-time ones; the wrappers check that they agree.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _cuda
 from ..dst_groups import EdgeGroups
 
-MAX_HEADS = 8      # the backward keeps one dot product per head in registers
+# csrc/fused_edge_softmax_aggregate.cu's design constants, in
+# fused_edge_softmax_aggregate_design's order: floats of gathered rows a
+# lane holds before the arithmetic; column vectors a lane holds of a row at
+# most; the heads whose alphas a forward lane holds at once where H > 2,
+# the most heads a backward slab holds and the most heads the backward
+# takes; heads of at most SMALL_HEAD_VECS column vectors take sub-warps in
+# the backward; resident blocks an SM the backward's warp kernel asks of
+# the compiler (a register cap)
+GATHER_FLOATS = 8
+MAX_VECS_PER_LANE = 8
+MAX_HEADS = 8
+SMALL_HEAD_VECS = 8
+BWD_MIN_BLOCKS = 8
+DESIGN = (GATHER_FLOATS, MAX_VECS_PER_LANE, MAX_HEADS, SMALL_HEAD_VECS,
+          BWD_MIN_BLOCKS)
+# fused_edge_softmax_aggregate_plan's fields: the backward's sub-warp route
+# (0 or 1); column vectors a lane of the row (forward) or of each head
+# (backward); the heads whose alphas a forward lane holds at once, the
+# heads of a backward slab, or H on the sub-warp route; blocks along y; U,
+# the rows in flight a warp or sub-warp; a head's lanes on the sub-warp
+# route, else 32
+PLAN_FIELDS = ("subwarp", "vecs", "heads", "slabs", "rows", "lanes")
+
+
+def launch_plan(backward: bool, h: int, dh: int, vec4: bool) -> dict:
+    """The layout the library launches the forward or the backward with,
+    for H heads of ``dh`` floats on float4 or scalar columns (the
+    wrappers take float4 where ``dh % 4 == 0`` and the tensors are 16-byte
+    aligned): {field: value} over :data:`PLAN_FIELDS`. Builds the library
+    at the first call."""
+    fn = _cuda.symbol("fused_edge_softmax_aggregate",
+                      "fused_edge_softmax_aggregate_plan",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    err = fn(int(backward), h, dh, int(vec4), plan)
+    if err:
+        raise ValueError(f"fused_edge_softmax_aggregate_plan refuses "
+                         f"H={h}, Dh={dh} (backward={backward})")
+    return dict(zip(PLAN_FIELDS, plan))
+
+
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p])
@@ -42,6 +93,20 @@ def _check_common(what: str, h_proj, scores, edge_src, groups) -> tuple:
     return h, dh
 
 
+@functools.lru_cache(maxsize=None)
+def _library_design() -> tuple:
+    fn = _cuda.symbol("fused_edge_softmax_aggregate",
+                      "fused_edge_softmax_aggregate_design", [ctypes.c_int])
+    return tuple(fn(i) for i in range(len(DESIGN)))
+
+
+def _check_design() -> None:
+    if _library_design() != DESIGN:
+        raise RuntimeError(f"fused_edge_softmax_aggregate.cu's design "
+                           f"constants are {_library_design()}, the "
+                           f"wrapper's {DESIGN}")
+
+
 def fused_edge_softmax_aggregate_cuda(h_proj: torch.Tensor,
                                       scores: torch.Tensor,
                                       edge_src: torch.Tensor,
@@ -56,6 +121,7 @@ def fused_edge_softmax_aggregate_cuda(h_proj: torch.Tensor,
     h, dh = _check_common(what, h_proj, scores, edge_src, groups)
     if m.shape != (groups.num_groups, h) or z.shape != m.shape:
         raise ValueError(f"{what}: m and z must be (num_dst, H)")
+    _check_design()
     out = torch.empty((groups.num_groups, h * dh), dtype=torch.float32,
                       device=h_proj.device)
     vec4 = int(dh % 4 == 0 and _cuda.aligned16(h_proj, out))
@@ -91,6 +157,7 @@ def fused_edge_softmax_aggregate_bwd_cuda(grad: torch.Tensor,
         raise ValueError(f"{what} takes at most {MAX_HEADS} heads, got {h}")
     if grad.shape != (groups.num_groups, h * dh) or out.shape != grad.shape:
         raise ValueError(f"{what}: grad and out must be (num_dst, H*Dh)")
+    _check_design()
     dscores = torch.zeros_like(alpha)
     vec4 = int(dh % 4 == 0 and _cuda.aligned16(grad, h_proj, out))
     fn = _cuda.symbol("fused_edge_softmax_aggregate",

@@ -304,3 +304,204 @@ def replay(rows, adds):
     for p in adds:
         acc = acc + rows[p].float()
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of K3's forward and its backward into the scores
+# (csrc/fused_edge_softmax_aggregate.cu), built from its kernel.py constants
+# and run in numpy float32
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.fused_edge_softmax_aggregate import \
+    kernel as k3  # noqa: E402
+
+
+def vec_dot(a, b):
+    """A column vector's dot product over the last axis in float32, term by
+    term in order (on the card the backward fuses a float4's products as
+    fma(w, fma(z, fma(x, y * y'))), and a scalar column's into the sum)."""
+    acc = a[..., 0] * b[..., 0]
+    for i in range(1, a.shape[-1]):
+        acc = acc + a[..., i] * b[..., i]
+    return acc
+
+
+def butterfly(x, lanes):
+    """``warp_sum``'s xor butterfly over the last axis (a power of two of
+    lanes), restricted to the offsets below ``lanes``: the sub-warp sum of
+    the backward's small heads; ``lanes`` = 32 is ``warp_sum`` itself.
+    Each lane adds the value of lane ``i ^ o`` to its own, in float32."""
+    x = np.asarray(x, np.float32)
+    idx = np.arange(x.shape[-1])
+    for o in (16, 8, 4, 2, 1):
+        if o < lanes:
+            x = x + x[..., idx ^ o]
+    return x
+
+
+def _pow2_at_least(x):
+    return 1 << max(0, x - 1).bit_length()
+
+
+def k3_plan(backward, h, hcols, vec, gf=None, min_lanes=1):
+    """A model of the layout ``fused_edge_softmax_aggregate_plan`` exports
+    for H heads of ``hcols`` column vectors of ``vec`` floats, built from
+    ``kernel.py``'s constants (``gf`` gathered floats a lane, by default
+    the library's): {field: value} over ``k3.PLAN_FIELDS``. ``min_lanes``
+    is the least lanes a head on the sub-warp route (1 in the library, more
+    in the sweep's ``L<n>`` variants). The ``cuda``-marked test holds the
+    model to the library's plan."""
+    gf = k3.GATHER_FLOATS if gf is None else gf
+
+    def rows(floats):
+        return min(32, max(1, gf // floats))
+
+    def fields(*values):
+        return dict(zip(k3.PLAN_FIELDS, values))
+
+    if not backward:
+        nv = min(_pow2_at_least(-(-h * hcols // 32)), k3.MAX_VECS_PER_LANE)
+        return fields(0, nv, 2 if h <= 2 else k3.MAX_HEADS,
+                      -(-h * hcols // (32 * nv)), rows(nv * vec), 32)
+    lanes = _pow2_at_least(max(hcols, min_lanes))
+    if hcols <= k3.SMALL_HEAD_VECS and h * lanes <= 32:
+        s = 32 // (h * lanes)
+        return fields(1, 1, h, 1, min(_pow2_at_least(rows(vec)),
+                                      _pow2_at_least(-(-32 // s))), lanes)
+    nvh = min(_pow2_at_least(-(-hcols // 32)), k3.MAX_VECS_PER_LANE)
+    wide = min(k3.MAX_VECS_PER_LANE // nvh, k3.MAX_HEADS)
+    hs = h if h <= 2 and wide >= 2 else wide
+    return fields(0, nvh, hs, -(-h // hs), rows(nvh * hs * vec), 32)
+
+
+def k3_forward_mirror(h_proj, scores, edge_src, order, offsets, m, z, vec,
+                      plan=None):
+    """K3's forward as the kernel schedules it, a warp (a destination and a
+    slab of its row) at a time, in float32, on ``plan`` (by default
+    :func:`k3_plan`'s). Returns (out (num_dst, H*Dh), log):
+    ``index_loads[p]`` counts the loads of live position p's order entry
+    and source index, ``alpha[p, h]`` the alphas lane k computes,
+    ``row_loads[p, c]`` the loads of its column vector c; ``adds[d]``
+    lists, per (slab, head chunk), its column vectors and the positions
+    added into them, in the order added; ``rounds`` the positions gathered
+    together before the first of them is added."""
+    v, h, dh = h_proj.shape
+    hcols = dh // vec
+    cols = h * hcols
+    num_dst = len(offsets) - 1
+    plan = k3_plan(False, h, hcols, vec) if plan is None else plan
+    nv, slabs, u = plan["vecs"], plan["slabs"], plan["rows"]
+    rows = np.asarray(h_proj, np.float32).reshape(v, cols, vec)
+    n_live = int(offsets[-1])
+    log = {"plan": plan,
+           "index_loads": np.zeros(n_live, int),
+           "alpha": np.zeros((n_live, h), int),
+           "row_loads": np.zeros((n_live, cols), int),
+           "adds": [[] for _ in range(num_dst)], "rounds": []}
+    out = np.zeros((num_dst, cols, vec), np.float32)
+    for d in range(num_dst):
+        beg, end = int(offsets[d]), int(offsets[d + 1])
+        for slab in range(slabs):
+            first = slab * nv * 32
+            mine = np.arange(first, min(first + nv * 32, cols))
+            heads = mine // hcols
+            h_lo, h_hi = heads[0], heads[-1]
+            hcs = plan["heads"]
+            chunks = [(hc, min(hcs, h_hi + 1 - hc))
+                      for hc in range(h_lo, h_hi + 1, hcs)]
+            added = {hc: [] for hc, _ in chunks}
+            for base in range(beg, end, 32):
+                pos = np.arange(base, min(base + 32, end))
+                log["index_loads"][pos] += 1
+                e = order[pos]
+                s = edge_src[e]
+                for hc, nh in chunks:
+                    hh = np.arange(hc, hc + nh)
+                    alpha = (np.exp(scores[e][:, hh] - m[d, hh])
+                             / np.maximum(z[d, hh], np.float32(1e-30)))
+                    log["alpha"][pos[:, None], hh] += 1
+                    cc = mine[(heads >= hc) & (heads < hc + nh)]
+                    w_head = cc // hcols - hc
+                    for k0 in range(0, pos.size, u):
+                        ks = range(k0, min(k0 + u, pos.size))
+                        log["rounds"].append([int(pos[k]) for k in ks])
+                        for k in ks:
+                            log["row_loads"][pos[k], cc] += 1
+                        for k in ks:
+                            out[d, cc] = (out[d, cc] + alpha[k, w_head][:, None]
+                                          * rows[s[k], cc])
+                            added[hc].append(int(pos[k]))
+            for hc, nh in chunks:
+                cc = mine[(heads >= hc) & (heads < hc + nh)]
+                log["adds"][d].append((cc.tolist(), added[hc]))
+    return out.reshape(num_dst, cols * vec), log
+
+
+def _head_dots(plan, a, b, hcols):
+    """Per head, the (edge, head) dot product <a[h], b[h]> over (H, hcols,
+    vec) as the plan's lanes take it: each lane's partial sum from 0 over
+    its columns in order, then the butterfly over the head's lanes."""
+    h = a.shape[0]
+    if plan["subwarp"]:
+        parts = np.zeros((h, plan["lanes"]), np.float32)
+        parts[:, :hcols] = np.float32(0) + vec_dot(a, b)
+        return butterfly(parts, plan["lanes"])[:, 0]
+    parts = np.zeros((h, 32), np.float32)
+    for i in range(-(-hcols // 32)):
+        c = np.arange(32 * i, min(32 * i + 32, hcols))
+        parts[:, c - 32 * i] = parts[:, c - 32 * i] + vec_dot(a[:, c],
+                                                              b[:, c])
+    return butterfly(parts, 32)[:, 0]
+
+
+def k3_backward_mirror(grad, h_proj, out, alpha, edge_src, order, offsets,
+                       vec, plan=None, parent=False):
+    """K3's backward into the scores as the kernel schedules it on
+    ``plan`` (by default :func:`k3_plan`'s), in float32: ds starts at 0 as
+    the wrapper fills it, and each live edge's ds[e, h] = alpha[e, h] *
+    (dot - <G[d, h], out[d, h]>). With ``parent``, the schedule it
+    replaced: one edge at a time, every head's dot over all 32 lanes of a
+    warp. Returns (ds, log): ``plan``, ``writes[e, h]`` the stores of
+    ds[e, h], ``rounds`` per (destination, slab, batch) the positions whose
+    rows are gathered together before any of their dot products."""
+    v, h, dh = h_proj.shape
+    hcols = dh // vec
+    num_dst = len(offsets) - 1
+    if parent:
+        plan = dict(zip(k3.PLAN_FIELDS, (0, -(-hcols // 32), h, 1, 1, 32)))
+    elif plan is None:
+        plan = k3_plan(True, h, hcols, vec)
+    g = np.asarray(grad, np.float32).reshape(num_dst, h, hcols, vec)
+    o = np.asarray(out, np.float32).reshape(num_dst, h, hcols, vec)
+    rows = np.asarray(h_proj, np.float32).reshape(v, h, hcols, vec)
+    ds = np.zeros(alpha.shape, np.float32)
+    log = {"plan": plan, "writes": np.zeros(alpha.shape, int),
+           "rounds": []}
+    slabs = [np.arange(s * plan["heads"], min(h, (s + 1) * plan["heads"]))
+             for s in range(plan["slabs"])]
+    for d in range(num_dst):
+        beg, end = int(offsets[d]), int(offsets[d + 1])
+        if beg == end:
+            continue
+        for hh in slabs:
+            gdo = _head_dots(plan, g[d, hh], o[d, hh], hcols)
+            for base in range(beg, end, 32):
+                pos = np.arange(base, min(base + 32, end))
+                u = plan["rows"]
+                if plan["subwarp"]:
+                    s = 32 // (h * plan["lanes"])
+                    per = -(-pos.size // s)
+                    rounds = [[int(pos[q + s * i]) for i in range(i0, i0 + u)
+                               for q in range(s) if q + s * i < pos.size]
+                              for i0 in range(0, per, u)]
+                else:
+                    rounds = [pos[k0:k0 + u].tolist()
+                              for k0 in range(0, pos.size, u)]
+                log["rounds"].append(rounds)
+                for p in (p for r in rounds for p in r):
+                    e = order[p]
+                    dot = _head_dots(plan, g[d, hh], rows[edge_src[e], hh],
+                                     hcols)
+                    ds[e, hh] = alpha[e, hh] * (dot - gdo)
+                    log["writes"][e, hh] += 1
+    return ds, log
