@@ -35,6 +35,16 @@ Phases, each of which exits non-zero when it fails:
                +-80, so that exp underflows inside a group. Each output
                within rtol = atol = 1e-5 of the plain version on the card,
                equal to a second launch, empty groups and padded edges 0.
+   k4_segments -- K4's statistics and normalize kernels on a synthetic
+               block: groups of every length 0-308 live edges and one of
+               100,000, padded slots with out-of-range destinations, H =
+               1, 2, 8 and 12, each on the aligned route and from a scores
+               view 4 bytes past a 16-byte boundary; m exactly the plain
+               version's, z and alpha within rtol = atol = 1e-5 of the
+               plain version summed on the CPU in the stable order, equal
+               to a second launch; each case timed, beside the cold-launch
+               floor (a one-element op after the L2 flush) of the same
+               run.
 4. kernels  -- builds the product-sim ``DistGraph`` (scale 14), samples one
                real batch at the paper's config (batch 1000, fanouts
                15/10/5; GraphSAGE and GAT share it) and holds each kernel
@@ -52,7 +62,9 @@ Phases, each of which exits non-zero when it fails:
                of a kernel must be bitwise equal. Each case prints the
                kernel's time, the plain version's, one PyTorch library
                call's where one computes the same function (a yardstick the
-               port never calls), the bound from the bytes it must move,
+               port never calls; for K4, ``torch.sparse.softmax`` over a
+               hybrid COO tensor computes statistics and normalize
+               together), the bound from the bytes it must move,
                and the max error. Then K5 ``sparse_adam`` at table scale
                (100,000 unique rows of a 1,134,649 x 128 float32 table,
                three steps, each bitwise equal to the plain version on the
@@ -554,7 +566,7 @@ def _plain_stats(torch, scores, ed, em, n):
     """K4's statistics as the plain version computes them: the masked max
     (0 for a destination with no live edge) and the denominator."""
     s = torch.where(em[:, None], scores, -1e30)
-    m = torch.full((n, s.shape[1]), -1e30, device="cuda").scatter_reduce(
+    m = torch.full((n, s.shape[1]), -1e30, device=s.device).scatter_reduce(
         0, ed.long()[:, None].expand_as(s), s, "amax")
     m = torch.where(m <= -5e29, 0.0, m)
     ex = torch.where(em[:, None], torch.exp(s - m[ed.long()]), 0.0)
@@ -621,23 +633,47 @@ def gat_cases(torch, tag, batch, caps, params) -> dict:
         check_close(torch, z1, pz, 1e-5, 1e-5,
                     f"K4 statistics denominator {label}")
         check_close(torch, a1, plain_alpha, 1e-5, 1e-5, f"K4 {label}")
+        # library yardstick for K4 as a whole (statistics and normalize):
+        # one torch.sparse.softmax over a hybrid COO tensor (num_dst, E, H)
+        # keyed by (destination, edge id), built outside the timed region
+        # (the port never calls it)
+        x = torch.sparse_coo_tensor(torch.stack([ed[live].long(), live]),
+                                    scores[live], (n, e, heads)).coalesce()
+        try:
+            lib_out = torch.sparse.softmax(x, 1)
+        except RuntimeError as exc:       # no hybrid tensors on the card
+            log(f"[kernels] K4 {label}: no library yardstick: "
+                f"torch.sparse.softmax refuses a hybrid COO tensor ({exc})")
+            lib_ms = None
+        else:
+            lib_alpha = torch.zeros_like(scores)
+            lib_alpha[lib_out.indices()[1]] = lib_out.values()
+            check_close(torch, lib_alpha, plain_alpha, 1e-5, 1e-5,
+                        f"K4 {label} library yardstick")
+            lib_ms = cuda_ms(torch, lambda: torch.sparse.softmax(x, 1))
+            del lib_out, lib_alpha
+        del x
         stats_bytes = (e + e_live * (4 + 4 * heads) + 2 * n * heads * 4)
         add_case(results["edge_softmax_stats"], f"K4 statistics {label}",
-                 dict(E=e, E_live=e_live, H=heads, num_dst=n),
+                 dict(E=e, E_live=e_live, H=heads, num_dst=n,
+                      library="torch.sparse.softmax (statistics and "
+                              "normalize together)"),
                  cuda_ms(torch, lambda: edge_softmax_stats_cuda(scores,
                                                                 by_dst)),
                  cuda_ms(torch, lambda: _plain_stats(torch, scores, ed, em,
                                                      n)),
-                 None, bound(stats_bytes, 4 * e_live * heads),
+                 lib_ms, bound(stats_bytes, 4 * e_live * heads),
                  max(max_err(torch, m1, pm), max_err(torch, z1, pz)))
         norm_bytes = (e + e_live * 4 + e_live * heads * 4
                       + 2 * n_dst_live * heads * 4 + e * heads * 4)
         add_case(results["edge_softmax_norm"], f"K4 normalize {label}",
-                 dict(E=e, E_live=e_live, H=heads, num_dst=n),
+                 dict(E=e, E_live=e_live, H=heads, num_dst=n,
+                      library="torch.sparse.softmax (statistics and "
+                              "normalize together)"),
                  cuda_ms(torch, lambda: edge_softmax_norm_cuda(
                      scores, ed, em, m1, z1)),
                  cuda_ms(torch, lambda: edge_softmax_ref(scores, ed, em, n)),
-                 None, bound(norm_bytes, 3 * e_live * heads),
+                 lib_ms, bound(norm_bytes, 3 * e_live * heads),
                  max_err(torch, a1, plain_alpha))
 
         # library yardstick for K3's aggregate and its backward into
@@ -1119,6 +1155,101 @@ def phase_k3_segments(torch) -> list:
                 cases.append(case)
                 log(f"[k3_segments] {json.dumps(case)}")
             del hp, scores, grad, views, plain_out, plain_ds, sc_g
+    return cases
+
+
+K4_MAX_SHORT = 308       # groups of every length 0-308 edges
+
+
+def phase_k4_segments(torch) -> list:
+    """K4's statistics and normalize kernels on a synthetic
+    destination-keyed block at the edges of their schedules: groups of
+    every length 0-308 live edges and one of 100,000, among 3,001 padded
+    slots (so that E is odd and a normalize thread takes the tail) whose
+    destination is out of range (the op never indexes by a padded slot's
+    destination); H = 1, 2, 8 and 12, each on the aligned route and from a
+    scores view 4 bytes past a 16-byte boundary (the scalar route); scores
+    uniform over +-80. m is held exactly to the plain version's max, z and
+    alpha within rtol = atol = 1e-5 of the plain version computed on the
+    CPU, whose ``index_add_`` sums each group one edge at a time in the
+    stable order as the kernel does (on the card the deterministic
+    ``index_add_`` sums a long group with a tree where H = 1, and a
+    100,000-term float32 sum in one order differs from one in another by
+    about 1e-5); each output equal to a second launch, empty groups m = z
+    = 0 and padded slots 0. Also logs the cold-launch floor: one
+    one-element op on a tensor the L2 flush has evicted, timed as the
+    kernels are."""
+    from repro_torch.kernels import (dst_groups, edge_softmax_norm_cuda,
+                                     edge_softmax_ref,
+                                     edge_softmax_stats_cuda)
+    from repro_torch.kernels.edge_softmax import kernel as k4
+
+    rng = np.random.default_rng(8)
+    lengths = list(range(K4_MAX_SHORT + 1)) + [STAR_EDGES]
+    n = len(lengths)
+    pad = 3001
+    dst = np.r_[np.repeat(np.arange(n, dtype=np.int32), lengths),
+                np.full(pad, 2 ** 30, np.int32)]
+    mask = np.r_[np.ones(dst.size - pad, bool), np.zeros(pad, bool)]
+    perm = rng.permutation(dst.size)
+    ed, em = (torch.from_numpy(a[perm]).to(DEVICE) for a in (dst, mask))
+    groups = dst_groups(ed, em, n)
+    empty = torch.from_numpy(np.array(lengths) == 0).to(DEVICE)
+    e = ed.numel()
+    # the plain versions index by every slot's destination: in range there
+    cpu_ed, cpu_em = torch.where(em, ed, 0).cpu(), em.cpu()
+    one = torch.zeros(1, device=DEVICE)
+    floor_ms = cuda_ms(torch, lambda: one.add_(1.0))
+    log(f"[k4_segments] {n} groups of 0-{K4_MAX_SHORT} and {STAR_EDGES} "
+        f"live edges, E={e}; design {k4.DESIGN}; cold-launch floor (one "
+        f"one-element op after the L2 flush) {floor_ms:.4f} ms")
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    cases = []
+    for heads in (1, 2, 8, 12):
+        scores = (torch.rand((e, heads), generator=gen, device=DEVICE)
+                  * 160 - 80)
+        cpu_scores = scores.cpu()
+        pm, pz = (x.to(DEVICE) for x in _plain_stats(torch, cpu_scores,
+                                                      cpu_ed, cpu_em, n))
+        plain_alpha = edge_softmax_ref(cpu_scores, cpu_ed, cpu_em, n).to(
+            DEVICE)
+        for where, s in (("aligned", scores),
+                         ("4 bytes past 16", torch.empty(
+                             scores.numel() + 1, device=DEVICE)[1:].view(
+                                 scores.shape).copy_(scores))):
+            label = f"K4 H={heads} {where}"
+            stats = lambda: edge_softmax_stats_cuda(s, groups)  # noqa: E731
+            m, z = stats()
+            m2, z2 = stats()
+            norm = lambda: edge_softmax_norm_cuda(  # noqa: E731
+                s, ed, em, m, z)
+            alpha = norm()
+            again = norm()
+            torch.cuda.synchronize()
+            require(torch.equal(m, m2) and torch.equal(z, z2)
+                    and torch.equal(alpha, again),
+                    f"{label}: two runs differ")
+            check_close(torch, m, pm, 0.0, 0.0, f"{label} statistics max")
+            check_close(torch, z, pz, 1e-5, 1e-5,
+                        f"{label} statistics denominator")
+            check_close(torch, alpha, plain_alpha, 1e-5, 1e-5,
+                        f"{label} normalize")
+            require(not bool(m[empty].any() or z[empty].any()),
+                    f"{label}: a group with no live edge is not 0")
+            require(not bool(alpha[~em].any()),
+                    f"{label}: a padded slot's alpha is not 0")
+            for kernel, fn, err in (
+                    ("statistics", stats,
+                     max(max_err(torch, m, pm), max_err(torch, z, pz))),
+                    ("normalize", norm, max_err(torch, alpha,
+                                                plain_alpha))):
+                case = {"case": f"{label} {kernel}", "H": heads, "E": e,
+                        "groups": n, "kernel_ms": cuda_ms(torch, fn,
+                                                          reps=5),
+                        "floor_ms": floor_ms, "max_abs_err": err}
+                cases.append(case)
+                log(f"[k4_segments] {json.dumps(case)}")
+        del scores, cpu_scores, pm, pz, plain_alpha
     return cases
 
 
@@ -1800,6 +1931,7 @@ def main() -> int:
     phase_src_scatter(torch)
     phase_segments(torch)
     phase_k3_segments(torch)
+    phase_k4_segments(torch)
 
     args = gnn_serve.build_parser().parse_args(
         ["--scale", str(SCALE), "--device", "cuda"])

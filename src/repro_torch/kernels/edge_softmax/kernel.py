@@ -8,20 +8,55 @@ Each wrapper checks device, type, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream without synchronising,
 counts the launch in its own ``launches`` and raises on a non-zero
 ``cudaError_t``. The library is built at the first call.
+
+The statistics take a thread a destination (and two heads, or one where
+H is odd): up to ``STATS_EDGES`` order entries, then their scores, are
+loaded before the online chain runs over them; a group of more than
+``WARP_FROM`` live edges is taken by the whole warp, 32 edges a batch,
+the running max from a scan over the lanes and the denominator's chain
+over the lanes' exponentials in the stable order. The normalize takes a
+thread a run of ``NORM_SLOTS`` consecutive slots, with vector loads and
+stores where the pointers allow, and gathers the statistics of live
+slots only. Every route gives the bits of one thread walking a
+(destination, head)'s edges in the stable order. The constants are the
+library's compile-time ones; the wrappers check that they agree.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _cuda
 from ..dst_groups import EdgeGroups
 
+# csrc/edge_softmax.cu's design constants, in edge_softmax_design's order:
+# live edges a statistics thread loads before its chain (U); the group
+# length above which the whole warp takes a group; the warp route's
+# batches of 32 edges in flight; consecutive slots a normalize thread takes
+STATS_EDGES = 8
+WARP_FROM = 64
+RING = 4
+NORM_SLOTS = 4
+DESIGN = (STATS_EDGES, WARP_FROM, RING, NORM_SLOTS)
+
 _STATS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
 _NORM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _library_design() -> tuple:
+    fn = _cuda.symbol("edge_softmax", "edge_softmax_design", [ctypes.c_int])
+    return tuple(fn(i) for i in range(len(DESIGN)))
+
+
+def _check_design() -> None:
+    if _library_design() != DESIGN:
+        raise RuntimeError(f"edge_softmax.cu's design constants are "
+                           f"{_library_design()}, the wrapper's {DESIGN}")
 
 
 def _check_scores(what: str, scores: torch.Tensor) -> None:
@@ -42,6 +77,7 @@ def edge_softmax_stats_cuda(scores: torch.Tensor, groups: EdgeGroups):
     if groups.order.numel() != scores.shape[0]:
         raise ValueError(f"{what}: groups must be built from the scores' "
                          f"E edges")
+    _check_design()
     h = scores.shape[1]
     m = torch.empty((groups.num_groups, h), dtype=torch.float32,
                     device=scores.device)
@@ -78,6 +114,7 @@ def edge_softmax_norm_cuda(scores: torch.Tensor, edge_dst: torch.Tensor,
             or m.shape[1] != h:
         raise ValueError(f"{what}: edge_dst must be (E,) and m, z "
                          f"(num_dst, H) for scores of shape {(e, h)}")
+    _check_design()
     alpha = torch.empty_like(scores)
     fn = _cuda.symbol("edge_softmax", "edge_softmax_norm_f32",
                       _NORM_ARGTYPES)

@@ -505,3 +505,158 @@ def k3_backward_mirror(grad, h_proj, out, alpha, edge_src, order, offsets,
                     ds[e, hh] = alpha[e, hh] * (dot - gdo)
                     log["writes"][e, hh] += 1
     return ds, log
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of K4's schedules (csrc/edge_softmax.cu), built from its kernel.py
+# constants
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.edge_softmax import kernel as k4  # noqa: E402
+
+_F1 = np.float32(1)
+
+
+def k4_stats_heads(h):
+    """The heads a statistics thread takes: 2 where H is even, else 1."""
+    return 2 if h % 2 == 0 else 1
+
+
+def k4_norm_heads(h):
+    """The heads a normalize thread takes: 4 where H % 4 == 0, 2 where H
+    is even, else 1."""
+    return 4 if h % 4 == 0 else 2 if h % 2 == 0 else 1
+
+
+def _online_step(s, m, z):
+    """One step of the statistics' chain on float32 scalars."""
+    up = s > m
+    e = np.exp(m - s if up else s - m)
+    return (s, z * e + _F1) if up else (m, z + e)
+
+
+def first_max(a, b):
+    """The chain's max rule as an operator on (earlier a, later b): b
+    replaces a when strictly greater, or when a is a NaN (no edge)."""
+    return np.where((b > a) | np.isnan(a), b, a)
+
+
+def _warp_group(s, m, z, log):
+    """The warp route over one group's scores ``s`` (its live edges in the
+    stable order, one head), 32 edges a batch, in float32: where some
+    lane's score exceeds the running max, the max before each edge from a
+    Hillis-Steele scan of ``first_max`` over the lanes (NaN past the
+    group's end; ``log["scans"]`` counts these batches), else the running
+    max; each lane's exponential, then the denominator's chain over the
+    lanes in order (a lane past the end adds +0)."""
+    lane = np.arange(32)
+    for base in range(0, s.size, 32):
+        cnt = min(32, s.size - base)
+        x = np.full(32, np.nan, np.float32)
+        x[:cnt] = s[base:base + cnt]
+        own = x.copy()
+        before = np.full(32, m, np.float32)
+        if (own > m).any():
+            log["scans"] += 1
+            for off in (1, 2, 4, 8, 16):
+                y = np.r_[x[:off], x[:-off]]
+                x = np.where(lane >= off, first_max(y, x), x)
+            before = np.r_[m, first_max(before[1:], x[:-1])]
+            m = np.float32(first_max(m, x[31]))
+        up = own > before
+        e = np.exp(np.where(up, before - own, own - before))
+        e[cnt:] = 0
+        for k in range(32):
+            z = z * e[k] + _F1 if up[k] else z + e[k]
+    return m, z
+
+
+def k4_stats_mirror(scores, order, offsets, u=None, warp_from=None):
+    """K4's statistics as ``csrc/edge_softmax.cu`` schedules them, in
+    float32 (``u`` order entries a thread loads before its chain and the
+    warp route's threshold ``warp_from``, by default kernel.py's): a thread
+    a destination and ``k4_stats_heads(H)`` heads loads a batch of up to U
+    order entries, then their scores, then runs the chain; a group of more
+    than ``warp_from`` live edges goes to the warp route. Returns (m, z,
+    log): ``order_loads[p]`` and ``score_loads[p, h]`` count the loads of
+    live position p's order entry and score of head h, ``writes[d, h]``
+    the stores of m[d, h] (and z), ``warp[d]`` whether d took the warp
+    route, ``batches`` the positions each thread batch loaded together,
+    ``scans`` the warp route's batches that took the scan."""
+    u = k4.STATS_EDGES if u is None else u
+    warp_from = k4.WARP_FROM if warp_from is None else warp_from
+    scores = np.asarray(scores, np.float32)
+    h = scores.shape[1]
+    ht = k4_stats_heads(h)
+    num_dst = len(offsets) - 1
+    n_live = int(offsets[-1])
+    m = np.zeros((num_dst, h), np.float32)
+    z = np.zeros((num_dst, h), np.float32)
+    log = {"order_loads": np.zeros(n_live, int),
+           "score_loads": np.zeros((n_live, h), int),
+           "writes": np.zeros((num_dst, h), int),
+           "warp": np.zeros(num_dst, bool), "batches": [], "scans": 0}
+    with np.errstate(over="ignore", invalid="ignore"):
+        for d in range(num_dst):
+            beg, end = int(offsets[d]), int(offsets[d + 1])
+            log["warp"][d] = end - beg > warp_from
+            for h0 in range(0, h, ht):
+                heads = range(h0, h0 + ht)
+                mm = [np.float32(-1e30)] * ht
+                zz = [np.float32(0)] * ht
+                if log["warp"][d]:
+                    log["order_loads"][beg:end] += 1
+                    log["score_loads"][beg:end, h0:h0 + ht] += 1
+                    s = scores[order[beg:end]]
+                    for j, hh in enumerate(heads):
+                        mm[j], zz[j] = _warp_group(s[:, hh], mm[j], zz[j],
+                                                   log)
+                for base in range(beg, end if not log["warp"][d] else beg,
+                                  u):
+                    pos = np.arange(base, min(base + u, end))
+                    log["batches"].append(pos.tolist())
+                    log["order_loads"][pos] += 1
+                    s = scores[order[pos]][:, h0:h0 + ht]
+                    log["score_loads"][pos, h0:h0 + ht] += 1
+                    for row in s:
+                        for j in range(ht):
+                            mm[j], zz[j] = _online_step(row[j], mm[j], zz[j])
+                for j, hh in enumerate(heads):
+                    if mm[j] <= np.float32(-1e30) / 2:
+                        mm[j], zz[j] = np.float32(0), np.float32(0)
+                    m[d, hh], z[d, hh] = mm[j], zz[j]
+                    log["writes"][d, hh] += 1
+    return m, z, log
+
+
+def k4_norm_mirror(scores, edge_dst, edge_mask, m, z):
+    """K4's normalize as ``csrc/edge_softmax.cu`` schedules it, in float32:
+    a thread a run of ``NORM_SLOTS`` consecutive slots and
+    ``k4_norm_heads(H)`` heads loads the run's mask and destinations,
+    gathers m and z of its live slots only, loads the scores of runs that
+    hold a live slot, and writes every slot of the run, 0 where padded.
+    Returns (alpha, log): ``writes[e, h]``, ``score_loads[e, h]``,
+    ``stat_loads[e]`` the gathers of m and z by slot e's destination."""
+    scores = np.asarray(scores, np.float32)
+    e_n, h = scores.shape
+    ht = k4_norm_heads(h)
+    alpha = np.zeros((e_n, h), np.float32)
+    log = {"writes": np.zeros((e_n, h), int),
+           "score_loads": np.zeros((e_n, h), int),
+           "stat_loads": np.zeros(e_n, int)}
+    for e0 in range(0, e_n, k4.NORM_SLOTS):
+        run = np.arange(e0, min(e0 + k4.NORM_SLOTS, e_n))
+        live = np.asarray(edge_mask)[run]
+        for h0 in range(0, h, ht):
+            cols = slice(h0, h0 + ht)
+            if live.any():
+                log["score_loads"][run, cols] += 1
+            for r in run[live]:
+                d = int(edge_dst[r])
+                log["stat_loads"][r] += 1
+                with np.errstate(over="ignore"):
+                    alpha[r, cols] = (np.exp(scores[r, cols] - m[d, cols])
+                                      / np.maximum(z[d, cols],
+                                                   np.float32(1e-30)))
+            log["writes"][run, cols] += 1
+    return alpha, log
