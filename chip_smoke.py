@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about four minutes
+    python3 chip_smoke.py            # one card; about five minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -15,14 +15,14 @@ Phases, each of which exits non-zero when it fails:
                rows of exactly C, C - 1, C + 1 and 3C edges at and off
                chunk boundaries, a skewed power-law block, a block with no
                live edge, F = 100 on the scalar path and F = 16 with 2
-               heads of 8; unweighted and weighted, each against
-               ``src_scatter_ref``, empty rows exactly 0, two launches
-               bitwise equal.
+               heads of 8 and F = 1024 (RGCN's hidden width); unweighted
+               and weighted, each against ``src_scatter_ref``, empty rows
+               exactly 0, two launches bitwise equal.
    segments -- K2 and K1's forward on a synthetic block at the edges of
                their schedules: groups of 0, 1, 15, 31, 32, 33, 64 and 308
                live edges and one of 100,000, and of one less, as many and
                one more than each schedule's batch; F = 1, 2, 3, 100
-               (float4 and scalar columns) and 256; K2 in float32 and
+               (float4 and scalar columns), 256 and 1024; K2 in float32 and
                bfloat16; unit-scale values that nearly cancel. Each output
                bitwise the plain version's computed on the CPU (in
                bfloat16 the float32 sum rounded once) and a second
@@ -113,13 +113,30 @@ Phases, each of which exits non-zero when it fails:
                NumPy oracle; a checkpoint after push 2, restored into a
                fresh store, gives the same bytes after pushes 3-4; then
                where a push's time goes.
-10. report  -- a JSON line of every ported kernel (its times summed over
+10. rgcn     -- the typed main paths, RGCN at the paper's width (hidden
+               1024, fanouts 25/15 per relation, 4 relations) on
+               mag-hetero: ``serving_rgcn``, ``gnn_serve --arch rgcn
+               --hetero`` at its defaults on scale 14 (batch 8, capacity
+               8), counted (K1 and K2 launch), served logits against
+               ``impl="ref"``, alone against co-batched, the tick's spans
+               and K1 and K2 on its last tick for each relation and layer;
+               ``train_rgcn``, ``launch.train --arch rgcn --hetero`` on
+               scale 12, 2 machines x 2 trainers, batch 32, one epoch (3
+               steps), counted (K1, its backward and K2 launch), then as
+               phase 7 with the peak device memory, and the kernels on the
+               first step's batch for each relation and layer (K1's
+               backward at both layers: layer 0's projections need a
+               gradient for ``w_rel``); ``recover_rgcn``, that command for
+               2 epochs killed at (1, 2) as phase 8; and one untyped RGCN
+               forward on mag-sim (one fused edge axis, an ``edge_types``
+               mask a relation) against ``impl="ref"``.
+11. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
-               under ``paper_batch``; its launches on each main path; K5
-               at table scale, K6 at its float32 shape), the
-               ``nvidia-smi`` line, and last ``{"ok": true, "device":
-               {...}}``.
+               under ``paper_batch``; its launches on each main path; the
+               RGCN tick's and step's sums beside; K5 at table scale, K6
+               at its float32 shape), the ``nvidia-smi`` line, and last
+               ``{"ok": true, "device": {...}}``.
 
 Tolerances: a kernel against its plain version in float32 rtol = atol =
 1e-5 (degrees are integers and compare exactly), in bfloat16 rtol = 0.1,
@@ -176,18 +193,21 @@ KERNELS = {
     "fused_gather_aggregate": dict(
         wrapper="fused_gather_aggregate",
         source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
-        paths=("serving", "train_graphsage", "train_recover")),
+        paths=("serving", "train_graphsage", "train_recover",
+               "serving_rgcn", "train_rgcn", "recover_rgcn")),
     # K2 as `_degrees` (F = 1), and as the GAT step's logit gradients
     # (F = 2, keyed by source and by destination)
     "segment_sum": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
-        replaces=K2, paths=("serving", "train_graphsage", "train_recover")),
+        replaces=K2, paths=("serving", "train_graphsage", "train_recover",
+                            "serving_rgcn", "train_rgcn", "recover_rgcn")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("train_gat",)),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
-        paths=("train_graphsage", "train_recover")),
+        paths=("train_graphsage", "train_recover", "train_rgcn",
+               "recover_rgcn")),
     "edge_softmax_stats": dict(
         wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
         replaces=K4, paths=("train_gat",)),
@@ -216,6 +236,13 @@ KERNELS = {
         replaces="src/repro/kernels/gather/kernel.py:29", paths=()),
 }
 TRAIN_BATCH = 128
+# the typed paths: RGCN at full width on mag-hetero; training at batch 32,
+# where each relation's layer-0 projection of the stacked step is S x
+# 197,152 x 1024 floats (3.2 GB), and K1's backward writes as many
+RGCN_SERVE_SCALE, RGCN_TRAIN_SCALE, RGCN_TRAIN_BATCH = 14, 12, 32
+RGCN_TRAIN = ["--arch", "rgcn", "--dataset", "mag-hetero", "--hetero",
+              "--scale", str(RGCN_TRAIN_SCALE), "--batch-size",
+              str(RGCN_TRAIN_BATCH)]
 
 
 class SmokeFailure(RuntimeError):
@@ -370,7 +397,7 @@ def k1_case(torch, label, h, block, num_dst, groups, results):
     # same function (duplicate edges summed into counts)
     a = torch.sparse_coo_tensor(
         torch.stack([ed[live].long(), es[live].long()]),
-        torch.ones(live.numel(), device="cuda"), (num_dst, v)
+        torch.ones(live.numel(), device=DEVICE), (num_dst, v)
     ).coalesce().to_sparse_csr()
     # the least the function moves: the mask of every slot, the source and
     # destination index of every live edge, each referenced source row
@@ -430,7 +457,7 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     # library yardstick: one index_add_ over the masked keys, padded
     # edges sent to a spare row
     keys = ed.long().masked_fill(~em, num_dst)
-    lib_out = torch.zeros((num_dst + 1, f), dtype=msg.dtype, device="cuda")
+    lib_out = torch.zeros((num_dst + 1, f), dtype=msg.dtype, device=DEVICE)
     # the least the function moves: the mask of every slot, the
     # destination index and message row of every live edge, and the output
     nbytes = e + n_live * (4 + f * isz) + num_dst * f * isz
@@ -462,8 +489,8 @@ def k1_bwd_case(torch, label, h, block, num_dst, groups, on_path,
     es, ed, em = block["edge_src"], block["edge_dst"], block["edge_mask"]
     v, f = h.shape
     hg = h.detach().requires_grad_()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    grad_out = torch.randn((num_dst, f), generator=gen, device="cuda")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    grad_out = torch.randn((num_dst, f), generator=gen, device=DEVICE)
     (got,) = torch.autograd.grad(fused_gather_aggregate(
         hg, es, ed, em, num_dst, impl="cuda", groups=groups), hg, grad_out)
     with stable_order(torch):
@@ -487,7 +514,7 @@ def k1_bwd_case(torch, label, h, block, num_dst, groups, on_path,
     # transposed (source x destination) live-edge matrix
     at = torch.sparse_coo_tensor(
         torch.stack([es[live].long(), ed[live].long()]),
-        torch.ones(live.numel(), device="cuda"), (v, num_dst)
+        torch.ones(live.numel(), device=DEVICE), (v, num_dst)
     ).coalesce().to_sparse_csr()
     # the least the function moves: the mask of every slot, both indices
     # of every live edge, each gradient row a live edge reads once, and
@@ -559,6 +586,57 @@ def layer_cases(torch, tag, batch, caps, params, general=False,
         with torch.no_grad():
             h = sage_layer(params["layers"][layer], h, block, caps[layer],
                            activation=torch.relu, impl="ref")
+    return results
+
+
+def rgcn_cases(torch, tag, batch, cfg, params, etype_id,
+               backward=False) -> dict:
+    """K1 and K2 as ``_degrees`` on every relation of every layer of one
+    staged RGCN batch (each relation's edges cut and flattened as
+    ``rgcn_layer`` cuts them, its input the relation's projection of the
+    layer's input from the plain forward); with ``backward``, K1's
+    backward on each too (training runs it at both layers: layer 0's
+    projections need a gradient for ``w_rel``)."""
+    from repro_torch.kernels import dst_groups
+    from repro_torch.models.gnn import rgcn_layer
+    from repro_torch.models.gnn.layers import _dense, rgcn_relation_edges
+
+    results = {"fused_gather_aggregate": [], "segment_sum": [],
+               "fused_gather_aggregate_bwd": []}
+    caps = cfg.dst_caps()
+    offsets = cfg.layer_rel_offsets(etype_id)
+    h = batch["input_feats"]
+    h = h if h.dim() == 3 else h[None]
+    for layer, block in enumerate(batch["blocks"]):
+        s, v, _ = h.shape
+        n = s * caps[layer]
+        p = params["layers"][layer]
+        for r in range(cfg.num_rels):
+            edges = rgcn_relation_edges(block, s, v, caps[layer], r,
+                                        offsets[layer])
+            if edges is None:
+                continue
+            es, ed, em = edges
+            flat = {"edge_src": es, "edge_dst": ed, "edge_mask": em}
+            with torch.no_grad():
+                proj = _dense(h, p["w_rel"][r]).reshape(s * v, -1)
+            groups = dst_groups(ed, em, n)
+            label = f"{tag} layer {layer} relation {r}"
+            k1_case(torch, label, proj, flat, n, groups,
+                    results["fused_gather_aggregate"])
+            deg = k2_case(torch, f"degrees {label}",
+                          em.to(torch.float32)[:, None], flat, n, groups,
+                          results["segment_sum"], 0.0, 0.0)
+            require(bool((deg == deg.round()).all()),
+                    f"degrees {label} are not integers")
+            if backward:
+                k1_bwd_case(torch, label, proj, flat, n, groups, True,
+                            results["fused_gather_aggregate_bwd"])
+            del proj, groups
+        with torch.no_grad():
+            h = rgcn_layer(p, h, block, caps[layer], cfg.num_rels,
+                           activation=torch.relu, impl="ref",
+                           rel_offsets=offsets[layer])
     return results
 
 
@@ -826,7 +904,8 @@ def phase_src_scatter(torch) -> list:
     exactly C, C - 1, C + 1 and 3C edges, rows that start at a chunk
     boundary and mid-chunk; a block with no live edge; F = 100 on the
     scalar path (H = 2 heads of 50, and unweighted from an unaligned
-    gradient); F = 16 with H = 2, Dh = 8. Unweighted and weighted, each
+    gradient); F = 16 with H = 2, Dh = 8; F = 1024 (RGCN's hidden width:
+    8 slabs of 128 columns). Unweighted and weighted, each
     held against ``src_scatter_ref`` under ``stable_order`` within
     rtol = atol = 1e-5 (the kernel sums in the plain version's order, so
     the error is expected to be 0), rows with no live edge exactly 0, and
@@ -851,6 +930,7 @@ def phase_src_scatter(torch) -> list:
         ("no live edge", {}, 300, 40, 500, 256, 2, False),
         ("F=100 scalar", skewed, 3000, 500, 2000, 100, 2, True),
         ("F=16 H=2 Dh=8", skewed, 3000, 500, 2000, 16, 2, False),
+        ("F=1024", skewed, 3000, 500, 2000, 1024, 2, False),
     ]
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     cases = []
@@ -928,7 +1008,8 @@ def phase_segments(torch) -> list:
     edges; K1 also on that run repeated past FEW_DST and past MANY_DST
     destinations (its two smaller register budgets); F = 1, 2 and 3 (K2's
     lanes across edges), 100 (float4 columns, and scalar ones from a view
-    4 bytes past a 16-byte boundary) and 256; K2 in float32 and
+    4 bytes past a 16-byte boundary), 256 and 1024 (RGCN's hidden width:
+    8 column vectors a lane, and U = 1 past FEW_DST); K2 in float32 and
     bfloat16. Values are unit-scale and nearly cancel
     within each group. K1 gathers each live slot's own row (``edge_src``
     is the slot), so it sums the same values as K2, in the same order.
@@ -1002,7 +1083,7 @@ def _segment_cases(torch, rng, lengths, launch) -> list:
                         label)
 
     cases = []
-    for f in (1, 2, 3, 100, 256):
+    for f in (1, 2, 3, 100, 256, 1024):
         x = torch.from_numpy(_cancelling(rng, dst, mask, f, n)).to(DEVICE)
         views = [("aligned", x)]
         if f == 100:
@@ -1285,8 +1366,8 @@ def counted(path: str, fn):
     return out, counts
 
 
-def phase_serving(torch, world, args) -> dict:
-    """The main path through gnn_serve, counted; then ref parity and
+def phase_serving(torch, world, args, path="serving") -> dict:
+    """A main path through gnn_serve, counted; then ref parity and
     co-batched bytes."""
     import numpy as np
 
@@ -1295,23 +1376,23 @@ def phase_serving(torch, world, args) -> dict:
 
     g, cfg, params = world
     summary, launches = counted(
-        "serving", lambda: gnn_serve.run_serving(args, world=world))
+        path, lambda: gnn_serve.run_serving(args, world=world))
     require(summary["served"] == summary["requests"],
             f"served {summary['served']} of {summary['requests']} requests")
-    log(f"[serving] p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
+    log(f"[{path}] p50 {summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
         f"throughput {summary['throughput_req_s']} req/s")
 
     rng = np.random.default_rng(1)
     nids = rng.integers(0, g.num_nodes(), size=20)
     ref_cfg = dataclasses.replace(cfg, impl="ref")
     with InferenceServer(g, cfg, params, micro_batch_window_ms=50.0,
-                         device="cuda") as srv:
+                         device=DEVICE) as srv:
         served = srv.predict(nids)
         alone = [srv.predict([n]) for n in nids[:6]]
         handles = [srv.submit([n]) for n in nids[:6]]
         co = [h.result(timeout=120) for h in handles]
         most = max(srv.tick_chunks)
-    with InferenceServer(g, ref_cfg, params, device="cuda") as srv:
+    with InferenceServer(g, ref_cfg, params, device=DEVICE) as srv:
         ref = srv.predict(nids)
     require(served.shape == (len(nids), cfg.num_classes)
             and bool(np.isfinite(served).all()),
@@ -1322,7 +1403,7 @@ def phase_serving(torch, world, args) -> dict:
     require(most > 1, "the co-batching check never co-batched")
     same = all(np.array_equal(a, c) for a, c in zip(alone, co))
     require(same, "a request co-batched returned other bytes than alone")
-    log(f"[serving] logits vs impl='ref' max abs err {err:.3e}; "
+    log(f"[{path}] logits vs impl='ref' max abs err {err:.3e}; "
         f"co-batched == alone bytes over 6 requests (up to {most} chunks "
         f"in a tick)")
     return launches
@@ -1365,8 +1446,9 @@ def phase_breakdown(torch, world, args, reps: int = 5) -> dict:
     spans = {k: (after["spans_ms"][k] - before["spans_ms"][k]) / reps
              for k in after["spans_ms"]}
     total = sum(v for k, v in spans.items() if k != "device_forward")
-    staged = device_stage(last["tree"], "cuda")
-    log(f"[breakdown] one tick of {capacity} chunks x {cfg.batch_size} "
+    staged = device_stage(last["tree"], DEVICE)
+    log(f"[breakdown] {cfg.arch}, one tick of {capacity} chunks x "
+        f"{cfg.batch_size} "
         f"seeds ({staged.total_bytes()} staged bytes, cache "
         f"{args.cache_budget_mb} MB), server spans, mean of {reps}: "
         + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
@@ -1403,21 +1485,20 @@ def phase_paper(torch, g, cfg, params) -> None:
     log(f"[paper] logits vs impl='ref' max abs err {err:.3e}")
 
 
-def phase_training(torch, arch: str) -> tuple:
-    """One epoch of ``repro_torch.launch.train`` on the card, counted;
-    then the first step against ``impl="ref"``, a second identical run
-    (bitwise-identical parameters), one step's breakdown from the second
-    run's spans, and the path's kernels on the first step's stacked batch.
-    Returns (launch counts, kernel cases)."""
+def phase_training(torch, path: str, argv: list) -> tuple:
+    """One epoch of ``repro_torch.launch.train`` with ``argv`` on the card,
+    counted, with its peak device memory; then the first step against
+    ``impl="ref"``, a second identical run (bitwise-identical parameters),
+    one step's breakdown from the second run's spans, and the path's
+    kernels on the first step's stacked batch. Returns (launch counts,
+    kernel cases)."""
     import math
 
     from repro_torch.launch import train
     from repro_torch.optim.optimizers import tree_leaves, tree_map
 
-    path = f"train_{arch}"
-    args = train.build_parser().parse_args(
-        ["--arch", arch, "--scale", str(SCALE), "--batch-size",
-         str(TRAIN_BATCH), "--epochs", "1", "--device", "cuda"])
+    args = train.build_parser().parse_args(argv + ["--epochs", "1",
+                                                   "--device", DEVICE])
 
     def run():
         _ds, tr = train.build_trainer(args)
@@ -1435,18 +1516,21 @@ def phase_training(torch, arch: str) -> tuple:
         summary = train.run_gnn(args, trainer=tr)
         return tr, params0, first[0], summary, time.perf_counter() - t0
 
+    torch.cuda.reset_peak_memory_stats()
     (tr, params0, first, summary, wall), launches = counted(path, run)
+    peak = torch.cuda.max_memory_allocated()
     losses = summary["epochs"][0]["losses"]
     require(len(losses) == tr.batches_per_epoch >= 1
             and all(math.isfinite(x) for x in losses)
             and 0.0 <= summary["val_acc"] <= 1.0,
             f"{path}: losses {losses}, val_acc {summary['val_acc']}")
-    log(f"[{path}] {arch} in {tr.cfg.in_dim}, hidden {tr.cfg.hidden_dim}, "
-        f"{tr.cfg.num_classes} classes, fanouts {list(tr.cfg.fanouts)}, "
-        f"{tr.num_trainers} trainers x batch {tr.cfg.batch_size}: "
-        f"{len(losses)} steps, losses {losses}, val_acc "
+    log(f"[{path}] {tr.cfg.arch} in {tr.cfg.in_dim}, hidden "
+        f"{tr.cfg.hidden_dim}, {tr.cfg.num_classes} classes, fanouts "
+        f"{list(tr.cfg.fanouts)}, {tr.num_trainers} trainers x batch "
+        f"{tr.cfg.batch_size}: {len(losses)} steps, losses {losses}, val_acc "
         f"{summary['val_acc']:.4f}, epoch {summary['epochs'][0]['time_s']:.3f}"
-        f" s, run with evaluation {wall:.3f} s")
+        f" s, run with evaluation {wall:.3f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB ({peak} bytes)")
 
     # the first step against the plain versions, on the same card
     loss, _acc, grads = tr.loss_and_grads(first, params=params0)
@@ -1490,8 +1574,11 @@ def phase_training(torch, arch: str) -> tuple:
                     if k.startswith("device_")))
     profile_step(torch, path, tr2, first)
     caps = tr.cfg.dst_caps()
-    if arch == "gat":
+    if tr.cfg.arch == "gat":
         cases = gat_cases(torch, "train", first, caps, params0)
+    elif tr.cfg.arch == "rgcn":
+        cases = rgcn_cases(torch, "train rgcn", first, tr.cfg, params0,
+                           tr.etype_id, backward=True)
     else:
         cases = layer_cases(torch, "train", first, caps, params0,
                             backward=True)
@@ -1813,46 +1900,114 @@ def phase_embedding(torch, n=EMB_ROWS, d=EMB_DIM, pushes=EMB_PUSHES,
     return launches
 
 
-def phase_recovery(torch) -> dict:
+def phase_recovery(torch, path: str, argv: list) -> dict:
     """Kill-and-revive through the entry point: ``repro_torch.launch.
-    train`` (GraphSAGE, 2 epochs, checkpoints every 2 steps, a 64 MB
+    train`` with ``argv`` (2 epochs, checkpoints every 2 steps, a 64 MB
     cache) killed at (epoch 1, batch 2) must revive in process from the
-    (epoch 1, batch 1) checkpoint and end with parameters bitwise equal to
-    the same command without the fault. The revived run is counted."""
+    last checkpoint before it and end with parameters bitwise equal to the
+    same command without the fault. The revived run is counted."""
     import tempfile
 
     from repro_torch.launch import train
     from repro_torch.optim.optimizers import tree_leaves
 
-    def argv(ck):
-        return ["--arch", "graphsage", "--scale", str(SCALE),
-                "--batch-size", str(TRAIN_BATCH), "--epochs", "2",
-                "--cache-budget-mb", "64", "--checkpoint-dir", ck,
-                "--checkpoint-interval", "2", "--device", DEVICE]
+    def args(ck, *fault):
+        return train.build_parser().parse_args(
+            argv + ["--epochs", "2", "--cache-budget-mb", "64",
+                    "--checkpoint-dir", ck, "--checkpoint-interval", "2",
+                    "--device", DEVICE, *fault])
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ck") as tmp:
         t0 = time.perf_counter()
-        plain = train.run_gnn(train.build_parser().parse_args(
-            argv(f"{tmp}/plain")))
+        plain = train.run_gnn(args(f"{tmp}/plain"))
         t1 = time.perf_counter()
-        chaos, launches = counted("train_recover", lambda: train.run_gnn(
-            train.build_parser().parse_args(
-                argv(f"{tmp}/chaos") + ["--inject-fault", "1:2"])))
+        chaos, launches = counted(path, lambda: train.run_gnn(
+            args(f"{tmp}/chaos", "--inject-fault", "1:2")))
         t2 = time.perf_counter()
-    require(chaos["revived"] == [(1, 1)],
+    # a checkpoint lands before every even global step, ahead of the death
+    # check at the same boundary: the last at or before the death at (1, 2)
+    bpe = plain["trainer"].batches_per_epoch
+    revived_at = divmod(2 * ((bpe + 2) // 2), bpe)
+    require(chaos["revived"] == [revived_at],
             f"the killed run revived from {chaos['revived']}, not from the "
-            f"(epoch 1, batch 1) checkpoint")
+            f"{revived_at} checkpoint")
     a, b = (tree_leaves(s["trainer"].params) for s in (plain, chaos))
     require(all(torch.equal(x, y) for x, y in zip(a, b)),
             "the revived run's parameters differ from the uninterrupted "
             "run's")
-    log(f"[train_recover] killed at (1, 2), revived from (1, 1): "
+    log(f"[{path}] killed at (1, 2), revived from {revived_at}: "
         f"bitwise-identical parameters ({sum(x.numel() for x in a)} "
         f"values) to the uninterrupted run; runs {t1 - t0:.2f} s and "
         f"{t2 - t1:.2f} s")
     del plain, chaos
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_serving_rgcn(torch) -> tuple:
+    """The typed serving path: ``gnn_serve --arch rgcn --dataset
+    mag-hetero --hetero`` on scale 14 at its defaults, as phase 5 (counted,
+    logits against ``impl="ref"``, alone against co-batched, one tick's
+    spans). Returns (launch counts, K1 and K2 on the last tick for each
+    relation and layer)."""
+    from repro_torch.launch import gnn_serve
+
+    args = gnn_serve.build_parser().parse_args(
+        ["--arch", "rgcn", "--dataset", "mag-hetero", "--hetero", "--scale",
+         str(RGCN_SERVE_SCALE), "--device", DEVICE])
+    t0 = time.perf_counter()
+    world = gnn_serve.build_world(args)
+    g, cfg, params = world
+    log(f"[serving_rgcn] mag-hetero scale {RGCN_SERVE_SCALE}: "
+        f"{g.num_nodes()} nodes, {g.num_edges()} edges, relations "
+        f"{list(g.schema.etypes)} (world built in "
+        f"{time.perf_counter() - t0:.2f} s); RGCN in {cfg.in_dim}, hidden "
+        f"{cfg.hidden_dim}, {cfg.num_classes} classes, fanouts "
+        f"{list(cfg.fanouts)}, relation slots by layer "
+        f"{cfg.layer_rel_offsets(g.schema.etype_id)}")
+    launches = phase_serving(torch, world, args, "serving_rgcn")
+    tick = phase_breakdown(torch, world, args)
+    cases = rgcn_cases(torch, "tick rgcn", tick, cfg, params,
+                       g.schema.etype_id)
+    del world, tick
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
+def phase_rgcn_untyped(torch) -> None:
+    """RGCN in the untyped layout: ``gnn_serve``'s server on mag-sim (one
+    fused edge axis, each relation's sums masked by ``edge_types == r``),
+    one request of 20 nodes through the kernels against ``impl="ref"``
+    (rtol 1e-4, atol 1e-5); K1 and K2 must launch."""
+    from repro_torch.api import InferenceServer
+    from repro_torch.launch import gnn_serve
+
+    args = gnn_serve.build_parser().parse_args(
+        ["--arch", "rgcn", "--dataset", "mag-sim", "--scale",
+         str(RGCN_TRAIN_SCALE), "--device", DEVICE])
+    g, cfg, params = gnn_serve.build_world(args)
+    nids = np.random.default_rng(4).integers(0, g.num_nodes(), size=20)
+
+    def predict(impl):
+        with InferenceServer(g, dataclasses.replace(cfg, impl=impl), params,
+                             device=DEVICE) as srv:
+            return srv.predict(nids, timeout=600)
+
+    got, launches = counted("rgcn_untyped", lambda: predict("auto"))
+    want = predict("ref")
+    require(launches["fused_gather_aggregate"] > 0
+            and launches["segment_sum"] > 0,
+            "the untyped RGCN forward launched no K1 or K2")
+    require(got.shape == (len(nids), cfg.num_classes)
+            and bool(np.isfinite(got).all()),
+            f"untyped RGCN logits have shape {got.shape} or are not finite")
+    err = float(np.abs(got - want).max())
+    require(bool(np.allclose(got, want, rtol=1e-4, atol=1e-5)),
+            f"untyped RGCN logits disagree with impl='ref' (max abs err "
+            f"{err:.3e})")
+    log(f"[rgcn_untyped] mag-sim scale {RGCN_TRAIN_SCALE}, fanouts "
+        f"{list(cfg.fanouts)} over {cfg.num_rels} relations: logits vs "
+        f"impl='ref' max abs err {err:.3e}")
 
 
 def _sums(cases: list) -> dict:
@@ -1891,13 +2046,15 @@ GAT_SHAPES = ("sum over the 3 layers of one GAT training step (4 trainers "
 
 
 def report(primary: dict, paper: dict, launches: dict,
-           sage_step: dict) -> dict:
+           sage_step: dict, rgcn: dict) -> dict:
     """Per kernel: its times summed over the layers of the main path's
     shapes (a serving tick at the gnn_serve defaults, or a training step
     of launch.train), the same sums for one batch-1000 forward (and
     backward) under ``paper_batch``, and its launches on each main path;
     K1's forward and K2 as ``_degrees`` also at one GraphSAGE training
-    step (``train_graphsage_step``)."""
+    step (``train_graphsage_step``), and K1, its backward and K2 summed
+    over the relations and layers of one RGCN tick and step
+    (``serving_rgcn_tick``, ``train_rgcn_step``)."""
     out = []
     for name, meta in KERNELS.items():
         by_path = {p: launches[p][meta["wrapper"]] for p in meta["paths"]}
@@ -1910,6 +2067,9 @@ def report(primary: dict, paper: dict, launches: dict,
                                else None)}
         if name in ("fused_gather_aggregate", "segment_sum"):
             row["train_graphsage_step"] = _sums(sage_step[name])
+        for key, cases in rgcn.items():
+            if cases.get(name):
+                row[key] = _sums(cases[name])
         out.append(row)
     return {"kernels": out}
 
@@ -1962,18 +2122,29 @@ def main() -> int:
     primary = layer_cases(torch, "tick", phase_breakdown(torch, world, args),
                           cfg.dst_caps(), params)
     phase_paper(torch, g, cfg, params)
-    launches["train_gat"], gat_train = phase_training(torch, "gat")
-    launches["train_graphsage"], sage_train = phase_training(torch,
-                                                             "graphsage")
-    launches["train_recover"] = phase_recovery(torch)
+    product = ["--scale", str(SCALE), "--batch-size", str(TRAIN_BATCH)]
+    launches["train_gat"], gat_train = phase_training(
+        torch, "train_gat", ["--arch", "gat"] + product)
+    launches["train_graphsage"], sage_train = phase_training(
+        torch, "train_graphsage", ["--arch", "graphsage"] + product)
+    launches["train_recover"] = phase_recovery(
+        torch, "train_recover", ["--arch", "graphsage"] + product)
     launches["embedding"] = phase_embedding(torch)
+    rgcn = {}
+    launches["serving_rgcn"], rgcn["serving_rgcn_tick"] = \
+        phase_serving_rgcn(torch)
+    launches["train_rgcn"], rgcn["train_rgcn_step"] = phase_training(
+        torch, "train_rgcn", RGCN_TRAIN)
+    launches["recover_rgcn"] = phase_recovery(torch, "recover_rgcn",
+                                              RGCN_TRAIN)
+    phase_rgcn_untyped(torch)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]
     primary["sparse_adam"] = k5
     primary["gather_rows"] = k6[:1]
 
-    print(json.dumps(report(primary, paper, launches, sage_train)))
+    print(json.dumps(report(primary, paper, launches, sage_train, rgcn)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

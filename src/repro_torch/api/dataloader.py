@@ -20,8 +20,9 @@ evaluation protocol (sequential batches, ad-hoc sampler coordinates,
 sampling RPCs uncharged, no threads). The host batches are byte-identical
 to the reference loader's for the same seeds.
 
-The edge loader (link prediction) and typed graphs are not ported yet
-(ROADMAP queue A items 5 and 4).
+On a typed graph (``g.hetero``) the sampler draws per relation and the
+features of each node type come through ``KVClient.pull_typed``. The edge
+loader (link prediction) is not ported yet (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -89,10 +90,6 @@ class _BaseLoader:
     def __init__(self, g: DistGraph, mode: str):
         if mode not in _MODES:
             raise ValueError(f"unknown loader mode {mode!r}; have {_MODES}")
-        if g.hetero:
-            raise NotImplementedError("typed loaders are not ported to "
-                                      "repro_torch yet: ROADMAP queue A "
-                                      "item 4 (RGCN and the typed path)")
         self.g = g
         self.mode = mode
         self.pipeline = None       # set by subclasses (train mode only)
@@ -193,7 +190,8 @@ class _BaseLoader:
 class NodeDataLoader(_BaseLoader):
     """DGL's ``NodeDataLoader`` over the distributed stack.
 
-    Parameters mirror the reference's: ``fanouts`` (per layer),
+    Parameters mirror the reference's: ``fanouts`` (per layer; int or
+    ``{etype: fanout}``),
     ``batch_size`` seeds per batch, ``labels`` aligned with ``nids``
     (host-resident), optional per-trainer hot-vertex ``cache``
     (:meth:`DistGraph.feature_cache`), ``sample_workers`` pool threads,
@@ -222,7 +220,9 @@ class NodeDataLoader(_BaseLoader):
             g.book, g.partitions, fanouts, self.batch_size,
             machine=g.machine,
             transport=None if eval_mode else g.transport,
-            seed=seed + 100 if sampler_seed is None else sampler_seed)
+            seed=seed + 100 if sampler_seed is None else sampler_seed,
+            schema=g.schema if g.hetero else None,
+            ntype_of_node=g.typed.ntype_of_node if g.hetero else None)
         self._client = g.new_client()
         self.cache = cache
         if not eval_mode:
@@ -230,7 +230,8 @@ class NodeDataLoader(_BaseLoader):
                 self.sampler, self._client, g.feat_name, self.nids,
                 labels=labels, sync=sync, non_stop=non_stop, depths=depths,
                 to_device=device_prefetch, device=device, seed=seed,
-                cache=cache, sample_workers=sample_workers, shuffle=shuffle)
+                typed=g.typed, cache=cache, sample_workers=sample_workers,
+                shuffle=shuffle)
 
     def __len__(self) -> int:
         if self.pipeline is not None:
@@ -242,6 +243,8 @@ class NodeDataLoader(_BaseLoader):
         # server runs the SAME function
         for mb in sample_ego_networks(self.sampler, self._client,
                                       self.g.feat_name, self.nids,
-                                      labels=self.labels):
+                                      labels=self.labels,
+                                      typed=self.g.typed if self.g.hetero
+                                      else None):
             yield NodeBatch(mb)
 

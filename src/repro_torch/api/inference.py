@@ -18,6 +18,11 @@ the static capacity by repeating its first chunk, and a slot's rows
 depend on nothing but its own chunk, so a request returns the same bytes
 whether it is served alone or co-batched.
 
+On a typed graph (``g.hetero``) the sampler draws per relation, the
+features of each node type come through ``KVClient.pull_typed_degraded``
+and the forward resolves the config's name-keyed fanouts with the
+schema's ``etype_id``.
+
 The server runs on the card unless it is given ``device="cpu"``.
 ``offline_embeddings`` (the layer-wise full-graph pass) is not ported yet
 (ROADMAP queue A).
@@ -157,10 +162,6 @@ class InferenceServer:
             raise ValueError("deadline_ms must be positive")
         if max_pending_chunks is not None and max_pending_chunks < 1:
             raise ValueError("max_pending_chunks must be >= 1")
-        if g.hetero:
-            raise NotImplementedError("typed serving is not ported to "
-                                      "repro_torch yet: ROADMAP queue A "
-                                      "item 4 (RGCN and the typed path)")
         self.device = resolve_device(device)
         self.g = g
         self.cfg = cfg
@@ -177,17 +178,23 @@ class InferenceServer:
         self.sampler = DistributedSampler(
             g.book, g.partitions, cfg.fanouts, cfg.batch_size,
             machine=g.machine, transport=None,   # sampling RPCs uncharged,
-            seed=sampler_seed)                   # like eval (DESIGN.md §11)
+            seed=sampler_seed,                   # like eval (DESIGN.md §11)
+            schema=g.schema if g.hetero else None,
+            ntype_of_node=g.typed.ntype_of_node if g.hetero else None)
         if isinstance(cache, CacheConfig):
             cache = g.feature_cache(cache)
         elif isinstance(cache, FeatureCache):
-            # shared instance: make sure this graph's feature tensor is
+            # shared instance: make sure this graph's feature tensors are
             # registered (idempotent) so pulls take the cached path
-            cache.register(g.store, g.feat_name)
+            names = ([f"{g.feat_name}:{nt}" for nt in g.schema.ntypes]
+                     if g.hetero else [g.feat_name])
+            for name in names:
+                cache.register(g.store, name)
         self.cache = cache
         self.client = g.new_client()
         if cache is not None:
             self.client.attach_cache(cache)
+        self.etype_id = g.schema.etype_id if g.hetero else None
 
         self._cond = threading.Condition()
         self._pending: List[tuple] = []    # (handle, chunk_idx, tree, live)
@@ -220,8 +227,13 @@ class InferenceServer:
         any row was salvaged. Retry exhaustion (the data exists, the
         network is flaky) still raises — the caller fails only the
         owning handle."""
-        feats, fresh = self.client.pull_degraded(self.g.feat_name,
-                                                 mb.input_gids)
+        if self.g.hetero:
+            feats, fresh = self.client.pull_typed_degraded(
+                self.g.feat_name, mb.input_gids, self.g.typed,
+                ntypes=mb.input_ntypes)
+        else:
+            feats, fresh = self.client.pull_degraded(self.g.feat_name,
+                                                     mb.input_gids)
         mb.input_feats = feats
         return not bool(fresh.all())
 
@@ -264,6 +276,7 @@ class InferenceServer:
             t0 = time.perf_counter()
             for b, mb in enumerate(sample_ego_networks(
                     self.sampler, self.client, self.g.feat_name, nids,
+                    typed=self.g.typed if self.g.hetero else None,
                     drop_last=False, pull_feats=False)):
                 t1 = time.perf_counter()
                 if self._pull_feats(mb):
@@ -350,7 +363,8 @@ class InferenceServer:
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record()
         with torch.inference_mode():
-            logits = apply_gnn(self.cfg, self.params, staged.unpack())
+            logits = apply_gnn(self.cfg, self.params, staged.unpack(),
+                               etype_id=self.etype_id)
         if on_card:
             events[1].record()
         out = logits.cpu().numpy()

@@ -18,9 +18,11 @@ of ``repro/core/pipeline/minibatch.py``'s node pipeline, built on
 ``non_stop=True`` keeps one pipeline alive across epochs (the paper's
 "non-stop asynchronous pipeline"); ``sync=True`` gives the unpipelined
 baseline. The host stages and their schedule are the reference's, so the
-batches are byte-identical to its pipeline's for the same seeds. The edge
-(link-prediction) pipeline and the typed path are not ported yet (ROADMAP
-queue A items 5 and 4). The class has its own name: the API-boundary check
+batches are byte-identical to its pipeline's for the same seeds. On a
+typed graph (``typed``, the world's ``TypedPartitionData``) the CPU
+prefetch pulls each node type's features through its own policy. The edge
+(link-prediction) pipeline is not ported yet (ROADMAP queue A item 5). The
+class has its own name: the API-boundary check
 (``tools/check_docs.py``) keeps every construction of the reference's
 pipeline class inside ``repro/api``, and the port's loaders are the only
 place this one is built.
@@ -79,11 +81,15 @@ class NodeMinibatchPipeline:
                  depths: dict | None = None,
                  sync: bool = False, non_stop: bool = True,
                  to_device: bool = True, device="cuda", seed: int = 0,
-                 cache=None, sample_workers: int = 1,
+                 typed=None, cache=None, sample_workers: int = 1,
                  shuffle: bool = True):
         self.sampler = sampler
         self.kv_client = kv_client
         self.feat_name = feat_name
+        # heterograph runs: features are registered per node type
+        # ("<feat_name>:<ntype>") and the prefetch stage routes each type
+        # through its own policy
+        self.typed = typed
         # per-trainer hot-vertex cache (kvstore.cache): the CPU-prefetch
         # stage's pulls consult it for remote rows; hits never touch the
         # transport. None = uncached (byte-identical batches either way).
@@ -124,7 +130,14 @@ class NodeMinibatchPipeline:
     def _stage_cpu_prefetch(self, mb: MiniBatch) -> MiniBatch:
         # one contiguous buffer, exactly the paper's "collect data from both
         # local machines and remote machines ... store in contiguous memory"
-        mb.input_feats = self.kv_client.pull(self.feat_name, mb.input_gids)
+        if self.typed is not None:
+            # the sampler already typed the frontier (mb.input_ntypes)
+            mb.input_feats = self.kv_client.pull_typed(
+                self.feat_name, mb.input_gids, self.typed,
+                ntypes=mb.input_ntypes)
+        else:
+            mb.input_feats = self.kv_client.pull(self.feat_name,
+                                                 mb.input_gids)
         return mb
 
     def _stage_device_prefetch(self, mb: MiniBatch):

@@ -9,6 +9,10 @@ micro-batch occupancy and cache hit rates as JSON.
     PYTHONPATH=src python -m repro_torch.launch.gnn_serve --arch graphsage \
         --dataset product-sim --scale 14 --rate 200 --duration 2
 
+``--hetero`` serves RGCN over typed relations on a schema'd dataset
+(``--arch rgcn --dataset mag-hetero --hetero``), every relation at the
+layer's fanout.
+
 The full-graph layer-wise pass (``--offline`` and its ``--chunk-size``)
 is not ported yet (ROADMAP queue A).
 """
@@ -23,8 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.gnn_serve")
     ap.add_argument("--arch", default="graphsage",
                     choices=["graphsage", "gat", "rgcn"],
-                    help="GNN architecture to serve (graphsage and gat are "
-                         "ported)")
+                    help="GNN architecture to serve")
     ap.add_argument("--dataset", default="product-sim",
                     help="named synthetic dataset (repro_torch.graph.datasets)")
     ap.add_argument("--scale", type=int, default=10,
@@ -32,7 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--machines", type=int, default=2,
                     help="simulated machines (level-1 partitions)")
     ap.add_argument("--hetero", action="store_true",
-                    help="typed relations end-to-end (not ported yet)")
+                    help="typed relations end-to-end (RGCN on a schema'd "
+                         "dataset, e.g. mag-hetero)")
     ap.add_argument("--batch-size", type=int, default=8,
                     help="seeds per §2 capacity block (requests larger "
                          "than this are chunked)")
@@ -87,20 +91,22 @@ def build_world(args):
     from ..configs import get_config
     from ..graph import get_dataset
     from ..models.gnn import init_gnn
+    from .train import typed_fanouts
 
     device = resolve_device(args.device)
-    if args.hetero:
-        raise NotImplementedError("--hetero is not ported to repro_torch "
-                                  "yet: ROADMAP queue A item 4 (RGCN and "
-                                  "the typed path)")
     cfg = get_config(args.arch)
     ds = get_dataset(args.dataset, scale=args.scale)
     cfg = dataclasses.replace(cfg, in_dim=ds.feats.shape[1],
                               num_classes=ds.num_classes,
                               batch_size=min(cfg.batch_size,
-                                             args.batch_size))
+                                             args.batch_size),
+                              num_rels=ds.graph.num_etypes)
+    if args.hetero:
+        cfg = dataclasses.replace(cfg, fanouts=typed_fanouts(ds,
+                                                             cfg.fanouts))
     g = DistGraph(ds, num_machines=args.machines, trainers_per_machine=1,
-                  seed=args.seed, replication=args.replication,
+                  hetero=args.hetero, seed=args.seed,
+                  replication=args.replication,
                   max_rpc_retries=args.max_rpc_retries,
                   hedge_ms=args.hedge_ms)
     params = init_gnn(cfg, torch.Generator().manual_seed(args.seed),

@@ -19,9 +19,15 @@ uninterrupted one. ``--rpc-fault-rate`` injects transient RPC faults
         --epochs 2 --checkpoint-dir /tmp/ck --checkpoint-interval 2 \
         --inject-fault 1:2
 
-Link prediction (``--task link_prediction``), typed graphs (``--hetero``,
-``--rel-fanout``) and the LM stack are not ported yet: each raises
-``NotImplementedError`` naming its ROADMAP item.
+Heterogeneous graphs: ``--hetero`` trains RGCN over typed relations
+end to end on a schema'd dataset, every relation at the layer's fanout
+unless ``--rel-fanout REL=K`` overrides it (0 stops sampling it)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn \
+        --dataset mag-hetero --hetero --rel-fanout cites=10 --epochs 3
+
+Link prediction (``--task link_prediction``) and the LM stack are not
+ported yet: each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -40,10 +46,6 @@ def _refuse_unported(args) -> None:
     if args.task != "node_classification":
         raise NotImplementedError("--task link_prediction is not ported to "
                                   "repro_torch yet: ROADMAP queue A item 5")
-    if args.hetero or args.rel_fanout:
-        raise NotImplementedError("--hetero / --rel-fanout are not ported "
-                                  "to repro_torch yet: ROADMAP queue A "
-                                  "item 4 (RGCN and the typed path)")
 
 
 def _kill_at(args):
@@ -56,6 +58,27 @@ def _kill_at(args):
     except ValueError:
         raise SystemExit(f"--inject-fault expects EPOCH:BATCH, "
                          f"got {args.inject_fault!r}")
+
+
+def typed_fanouts(ds, fanouts, rel_fanout=None) -> list:
+    """``--hetero``'s per-relation fanouts: every relation of ``ds``'s
+    schema at the layer's fanout unless a ``<relation>=<k>`` spec of
+    ``rel_fanout`` overrides it (0 stops sampling that relation)."""
+    if ds.schema is None:
+        raise SystemExit(f"--hetero needs a schema'd dataset "
+                         f"(e.g. mag-hetero), got {ds.name}")
+    overrides = {}
+    for spec in rel_fanout or []:
+        rel, sep, k = spec.partition("=")
+        if not sep or not k.isdigit():
+            raise SystemExit(f"--rel-fanout expects <relation>=<int>, "
+                             f"got {spec!r}")
+        if rel not in ds.schema.etypes:
+            raise SystemExit(f"unknown relation {rel!r}; dataset "
+                             f"relations: {list(ds.schema.etypes)}")
+        overrides[rel] = int(k)
+    return [{rel: overrides.get(rel, f) for rel in ds.schema.etypes}
+            for f in fanouts]
 
 
 def build_trainer(args):
@@ -76,7 +99,18 @@ def build_trainer(args):
     cfg = dataclasses.replace(cfg, in_dim=ds.feats.shape[1],
                               num_classes=ds.num_classes,
                               batch_size=min(cfg.batch_size,
-                                             args.batch_size))
+                                             args.batch_size),
+                              num_rels=ds.graph.num_etypes)
+    if args.hetero:
+        from ..graph import HeteroCSRGraph
+
+        cfg = dataclasses.replace(cfg, fanouts=typed_fanouts(
+            ds, cfg.fanouts, args.rel_fanout))
+        counts = HeteroCSRGraph(ds.graph, ds.schema).type_counts()
+        print(f"[hetero] schema: {list(ds.schema.ntypes)} / "
+              f"{list(ds.schema.canonical_etypes)}")
+        print(f"[hetero] counts: {counts}")
+        print(f"[hetero] per-relation fanouts: {cfg.fanouts}")
     cache = (CacheConfig.from_mb(args.cache_budget_mb,
                                  policy=args.cache_policy)
              if args.cache_budget_mb > 0 else None)
@@ -180,8 +214,8 @@ def run_gnn(args, trainer=None) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
-                    help="model: graphsage|gat (rgcn and the LM archs are "
-                         "not ported yet)")
+                    help="model: graphsage|gat|rgcn (the LM archs are not "
+                         "ported yet)")
     ap.add_argument("--dataset", default="product-sim",
                     help="named synthetic dataset "
                          "(repro_torch.graph.datasets)")
@@ -203,9 +237,11 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["node_classification", "link_prediction"],
                     help="GNN workload (link prediction is not ported yet)")
     ap.add_argument("--hetero", action="store_true",
-                    help="typed relations end-to-end (not ported yet)")
+                    help="typed relations end-to-end (RGCN on a schema'd "
+                         "dataset, e.g. mag-hetero)")
     ap.add_argument("--rel-fanout", action="append", metavar="REL=K",
-                    help="per-relation fanout (not ported yet)")
+                    help="per-relation fanout override for --hetero "
+                         "(repeatable; 0 disables sampling the relation)")
     ap.add_argument("--cache-budget-mb", type=float, default=0.0,
                     help="per-trainer hot-vertex feature cache budget in "
                          "MB (0 disables the cache)")

@@ -39,8 +39,8 @@ def _degrees(edge_dst, edge_mask, num_dst, impl="auto", groups=None):
 
 
 def _flat_edges(block: dict, num_slots: int, cap_src: int, num_dst: int):
-    """(S, E) edge arrays -> (S*E,) arrays indexing the flat (S*cap_src)
-    sources and (S*num_dst) destinations."""
+    """(S, E) edge arrays (or (E,) with one slot) -> (S*E,) arrays indexing
+    the flat (S*cap_src) sources and (S*num_dst) destinations."""
     slot = torch.arange(num_slots, dtype=torch.int32,
                         device=block["edge_src"].device)[:, None]
     edge_src = block["edge_src"].reshape(num_slots, -1).to(torch.int32)
@@ -132,6 +132,70 @@ def gat_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
                                        edge_mask, n, impl=impl,
                                        groups=by_dst, by_src=by_src)
     out = out.view(s, num_dst, -1) + params["b"]
+    if activation is not None:
+        out = activation(out)
+    return out if stacked else out[0]
+
+
+def rgcn_relation_edges(block: dict, num_slots: int, cap_src: int,
+                        num_dst: int, r: int, rel_offsets=None):
+    """Relation r's edges of a block with ``num_slots`` stack slots, as
+    :func:`_flat_edges` flattens them, or None where a typed layer has no
+    slot for r. Typed: the static slot range ``[rel_offsets[r],
+    rel_offsets[r+1])`` of every stack slot's edge arrays, cut before the
+    slots are flattened so that each slot's indices are offset as its own.
+    Untyped: every edge, masked to ``edge_types == r``."""
+    if rel_offsets is None:
+        edge_src, edge_dst, edge_mask = _flat_edges(block, num_slots, cap_src,
+                                                    num_dst)
+        return (edge_src, edge_dst,
+                edge_mask & (block["edge_types"].reshape(-1) == r))
+    lo, hi = int(rel_offsets[r]), int(rel_offsets[r + 1])
+    if hi == lo:
+        return None
+    cut = {k: block[k].reshape(num_slots, -1)[:, lo:hi]
+           for k in ("edge_src", "edge_dst", "edge_mask")}
+    return _flat_edges(cut, num_slots, cap_src, num_dst)
+
+
+def rgcn_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
+               num_rels: int, activation=torch.relu, impl: str = "auto",
+               rel_offsets=None) -> torch.Tensor:
+    """RGCN: h_v = act(W_0 h_v + sum_r (1/c_{v,r}) sum_{u in N_r(v)} W_r h_u).
+
+    params: w_rel (R, d_in, d_out), w_self (d_in, d_out), b (d_out,).
+    Relations are looped (R is small and static). Two block layouts:
+
+    * typed (relation-major, ``rel_offsets`` a static (R+1,) tuple from the
+      sampler's per-relation capacities): relation r's edges occupy the
+      static slot range ``[rel_offsets[r], rel_offsets[r+1])`` of every
+      stack slot, so each relation's sums run over only its own slots; a
+      relation with an empty range is skipped;
+    * untyped: one fused edge axis, each relation re-scans it with its own
+      ``edge_types == r`` mask.
+
+    Each relation projects all source rows, ``h_src @ w_rel[r]``, sums them
+    with K1 and divides by its own degrees (K2); on the card K1 and K2
+    share one destination-grouped order per relation.
+    """
+    stacked = h_src.dim() == 3
+    h = h_src if stacked else h_src[None]
+    s, v, _f = h.shape
+    n = s * num_dst
+    on_card = resolve_impl(impl, h) == "cuda"
+    out = _dense(h[:, :num_dst], params["w_self"]) + params["b"]
+    for r in range(num_rels):
+        edges = rgcn_relation_edges(block, s, v, num_dst, r, rel_offsets)
+        if edges is None:             # relation not sampled at this layer
+            continue
+        es, ed, em = edges
+        proj = _dense(h, params["w_rel"][r])          # (S, cap_src, d_out)
+        d_out = proj.shape[-1]
+        groups = dst_groups(ed, em, n) if on_card else None
+        agg = fused_gather_aggregate(proj.reshape(s * v, d_out), es, ed, em,
+                                     n, impl=impl, groups=groups)
+        agg = agg / _degrees(ed, em, n, impl=impl, groups=groups)[:, None]
+        out = out + agg.view(s, num_dst, d_out)
     if activation is not None:
         out = activation(out)
     return out if stacked else out[0]

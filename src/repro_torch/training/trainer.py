@@ -20,9 +20,11 @@ The constructor options are the reference's Fig. 14 ablation axes
 elastic fault tolerance of DESIGN.md §10: consistent checkpoints every
 ``checkpoint_interval`` steps, a seeded ``fault_injector`` on the world's
 transport, and :meth:`DistGNNTrainer.recover`, which restores a
-checkpoint and replays the rest of the run byte for byte. Link prediction
-and typed graphs are not ported yet: each raises ``NotImplementedError``
-naming its ROADMAP item.
+checkpoint and replays the rest of the run byte for byte. A config with
+per-relation fanouts (``GNNConfig.typed``, RGCN on a schema'd dataset)
+builds a typed world: per-relation sampling, per-node-type features and
+relation-major blocks. Link prediction is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from ..graph.datasets import GraphDataset
 from ..kernels.pack import device_stage, stack_trees
 from ..models.gnn import (GNNConfig, apply_gnn, init_gnn, nc_accuracy,
                           nc_loss, params_to)
-from ..models.gnn.models import _check_ported
+from ..models.gnn.models import _check_arch
 from ..optim import adamw_init, adamw_update
 from ..optim.optimizers import tree_leaves, tree_map
 
@@ -155,16 +157,16 @@ class DistGNNTrainer:
         self.ds = ds
         if job.impl is not None:
             model_cfg = dataclasses.replace(model_cfg, impl=job.impl)
-        _check_ported(model_cfg.arch)
+        _check_arch(model_cfg.arch)
         self.cfg = model_cfg
         self.job = job
         self.task = job.task
 
-        # the world: partition + KVStore, behind one handle
+        # the world: partition + KVStore + typed views, behind one handle
         self.graph = DistGraph(
             ds, num_machines=job.num_machines,
             trainers_per_machine=job.trainers_per_machine,
-            partition_method=job.partition_method, hetero=False,
+            partition_method=job.partition_method, hetero=model_cfg.typed,
             seed=job.seed, network=job.network,
             replication=job.replication,
             max_rpc_retries=job.max_rpc_retries, hedge_ms=job.hedge_ms)
@@ -178,6 +180,11 @@ class DistGNNTrainer:
             self.transport.fault_injector = job.fault_injector
         self.store = self.graph.store
         self.labels_new = self.graph.labels
+        self.schema = self.graph.schema
+        self.hetero = self.graph.hetero
+        self.typed = self.graph.typed
+        # resolves the typed config's name-keyed fanouts to relation ids
+        self.etype_id = self.schema.etype_id if self.hetero else None
 
         # per-trainer seed split (§5.6.1)
         self.trainer_seeds = self.graph.node_splits(
@@ -239,7 +246,7 @@ class DistGNNTrainer:
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _p: next(it), params)
-        logits = apply_gnn(cfg, live, stacked)
+        logits = apply_gnn(cfg, live, stacked, etype_id=self.etype_id)
         losses = nc_loss(logits, stacked["labels"], stacked["seed_mask"])
         accs = nc_accuracy(logits, stacked["labels"], stacked["seed_mask"])
         return losses.mean(), accs.mean(), leaves
@@ -341,7 +348,8 @@ class DistGNNTrainer:
             for batch in itertools.islice(loader, max_batches):
                 staged = device_stage(batch.model_input(),
                                       self.device).unpack()
-                logits = apply_gnn(self.cfg, self.params, staged)
+                logits = apply_gnn(self.cfg, self.params, staged,
+                                   etype_id=self.etype_id)
                 accs.append(float(nc_accuracy(logits, staged["labels"],
                                               staged["seed_mask"])))
         return float(np.mean(accs)) if accs else float("nan")
@@ -432,6 +440,10 @@ class DistGNNTrainer:
                },
                "mean_seed_locality": self.locality["mean_local_frac"],
                "partition_time_s": self.partition_time_s}
+        if self.hetero:
+            per = sum(s.stats.edges_per_etype for s in self.samplers)
+            out["edges_per_etype"] = {
+                rel: int(per[r]) for r, rel in enumerate(self.schema.etypes)}
         live = [c for c in self.caches if c is not None]
         if live:
             per = [c.stats() for c in live]

@@ -136,16 +136,23 @@ def test_init_gnn_glorot_limits_and_seeded():
 
 
 def test_configs_and_unported_archs():
-    # the port keeps the reference's GraphSAGE and GAT fields, with the
-    # same values (the RGCN field comes with that arch)
-    for arch in ("graphsage", "gat"):
+    # the port keeps the reference's GraphSAGE, GAT and RGCN fields, with
+    # the same values; every GNN arch is ported, and an unknown one raises
+    for arch in ("graphsage", "gat", "rgcn"):
         want = dataclasses.asdict(ref_get_config(arch))
         assert dataclasses.asdict(get_config(arch)) == {
             k: want[k] for k in ("arch", "in_dim", "hidden_dim",
                                  "num_classes", "fanouts", "batch_size",
-                                 "num_heads", "impl")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rgcn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_gnn(GNNConfig(**{**CFG, "arch": "rgcn"}),
+                                 "num_heads", "num_rels", "impl")}
+    rgcn = get_config("rgcn")
+    assert (rgcn.hidden_dim, rgcn.fanouts, rgcn.num_rels) == (1024, [25, 15],
+                                                              4)
+    params = init_gnn(GNNConfig(**{**CFG, "arch": "rgcn", "num_rels": 3}),
+                      torch.Generator().manual_seed(0))
+    assert [tuple(lp["w_rel"].shape) for lp in params["layers"]] == [
+        (3, 100, 32), (3, 32, 32), (3, 32, 16)]
+    with pytest.raises(ValueError, match="unknown GNN arch"):
+        get_config("gcn")
+    with pytest.raises(ValueError, match="unknown GNN arch"):
+        init_gnn(GNNConfig(**{**CFG, "arch": "gcn"}),
                  torch.Generator().manual_seed(0))

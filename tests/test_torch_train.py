@@ -366,14 +366,51 @@ def test_train_cli_runs_on_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["--task", "link_prediction"], "item 5"),
-    (["--hetero"], "item 4"),
-    (["--rel-fanout", "cites=5"], "item 4"),
-    (["--arch", "rgcn"], "item 4"),
 ])
 def test_unported_options_raise_and_name_their_roadmap_item(argv, item):
     args = train_cli.build_parser().parse_args(
         ["--arch", "graphsage", "--device", "cpu", *argv])
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
+        train_cli.build_trainer(args)
+
+
+MAG_RELS = ("cites", "writes", "rev_writes", "employs")
+
+
+@pytest.mark.parametrize("argv,fanouts", [
+    (["--hetero"], [dict.fromkeys(MAG_RELS, f) for f in (25, 15)]),
+    (["--hetero", "--rel-fanout", "cites=5", "--rel-fanout", "employs=0"],
+     [{**dict.fromkeys(MAG_RELS, f), "cites": 5, "employs": 0}
+      for f in (25, 15)]),
+    ([], [25, 15]),
+])
+def test_rgcn_and_typed_options_build_their_trainer(argv, fanouts):
+    """``--arch rgcn`` (typed with ``--hetero``, ``--rel-fanout``
+    overriding a relation's fanout; untyped without) builds a trainer of
+    the reference's config: num_rels from the dataset, a typed world only
+    under ``--hetero``."""
+    args = train_cli.build_parser().parse_args(
+        ["--arch", "rgcn", "--dataset", "mag-hetero", "--device", "cpu",
+         "--scale", "9", "--batch-size", "4", *argv])
+    _ds, tr = train_cli.build_trainer(args)
+    tr.stop()
+    assert tr.cfg.arch == "rgcn" and tr.cfg.num_rels == 4
+    assert tr.cfg.fanouts == fanouts
+    assert tr.cfg.typed == tr.hetero == bool(argv)
+    assert (tr.typed is not None) == bool(argv)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--dataset", "product-sim", "--hetero"], "needs a schema'd dataset"),
+    (["--dataset", "mag-hetero", "--hetero", "--rel-fanout", "cites"],
+     "expects <relation>=<int>"),
+    (["--dataset", "mag-hetero", "--hetero", "--rel-fanout", "likes=3"],
+     "unknown relation 'likes'"),
+])
+def test_typed_options_refuse_what_the_reference_refuses(argv, message):
+    args = train_cli.build_parser().parse_args(
+        ["--arch", "rgcn", "--device", "cpu", "--scale", "9", *argv])
+    with pytest.raises(SystemExit, match=message):
         train_cli.build_trainer(args)
 
 
