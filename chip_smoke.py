@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about five minutes
+    python3 chip_smoke.py            # one card; about six minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -130,11 +130,40 @@ Phases, each of which exits non-zero when it fails:
                2 epochs killed at (1, 2) as phase 8; and one untyped RGCN
                forward on mag-sim (one fused edge axis, an ``edge_types``
                mask a relation) against ``impl="ref"``.
-11. report  -- a JSON line of every ported kernel (its times summed over
+11. link prediction -- the edge mini-batch main paths, each timed:
+               ``train_lp``, ``launch.train --task link_prediction`` with
+               GraphSAGE + dot at the paper's widths on product-sim scale
+               7, 2 machines x 2 trainers, 32 positive edges a trainer x
+               16 uniform negatives (576 endpoint seeds; layer 0 of the
+               stacked step 2,433,024 source rows), one epoch and
+               ``evaluate_lp`` at its default depth (MRR, Hits@1/3/10
+               over 20 batches of 16 edges x 49 negatives), as phase 7:
+               counted (K1, its backward and K2 launch; K2 also sums the
+               head's gathers' gradients), the first step's loss, MRR and
+               gradients against ``impl="ref"``, a second run bitwise
+               equal, the step's breakdown and launches, and K1, its
+               backward and K2 (as ``_degrees`` and as each of the head's
+               gathers, keyed by the batch's ``pos_u``, ``pos_v``,
+               ``neg_v`` and ``edge_etypes``) on the first step's batch;
+               ``train_lp_rgcn``, typed RGCN + distmult with exclusion on
+               mag-hetero scale 5 (8 edges x 2 negatives, 32 seeds a
+               trainer, evaluation over 20 batches of 8 edges), the same
+               checks, ``rel_emb`` in the bitwise comparison;
+               ``lp_batch``, the same kernels on one first-step batch of
+               ``train_lp``'s command on scale 14, where the ego-networks
+               do not cover the graph (scale 7's are mostly padding);
+               ``recover_lp``,
+               ``train_lp`` on scale 6 for 2 epochs killed at (1, 2) as
+               phase 8; ``lp_heads``, the score head alone at
+               ``train_lp``'s shapes for {dot, distmult} x {uniform,
+               in-batch}, twice, bitwise equal between runs and within
+               rtol 1e-4, atol 1e-5 of the CPU plain path.
+12. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
-               RGCN tick's and step's sums beside; K5 at table scale, K6
+               RGCN tick's and step's and the link-prediction steps' sums
+               beside; K5 at table scale, K6
                at its float32 shape), the ``nvidia-smi`` line, and last
                ``{"ok": true, "device": {...}}``.
 
@@ -194,20 +223,23 @@ KERNELS = {
         wrapper="fused_gather_aggregate",
         source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
         paths=("serving", "train_graphsage", "train_recover",
-               "serving_rgcn", "train_rgcn", "recover_rgcn")),
-    # K2 as `_degrees` (F = 1), and as the GAT step's logit gradients
-    # (F = 2, keyed by source and by destination)
+               "serving_rgcn", "train_rgcn", "recover_rgcn", "train_lp",
+               "train_lp_rgcn", "recover_lp")),
+    # K2 as `_degrees` (F = 1), as the GAT step's logit gradients (F = 2,
+    # keyed by source and by destination), and as the gradients of the
+    # link-prediction head's gathers (F = the embedding width)
     "segment_sum": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("serving", "train_graphsage", "train_recover",
-                            "serving_rgcn", "train_rgcn", "recover_rgcn")),
+                            "serving_rgcn", "train_rgcn", "recover_rgcn",
+                            "train_lp", "train_lp_rgcn", "recover_lp")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("train_gat",)),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
         paths=("train_graphsage", "train_recover", "train_rgcn",
-               "recover_rgcn")),
+               "recover_rgcn", "train_lp", "train_lp_rgcn", "recover_lp")),
     "edge_softmax_stats": dict(
         wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
         replaces=K4, paths=("train_gat",)),
@@ -243,6 +275,18 @@ RGCN_SERVE_SCALE, RGCN_TRAIN_SCALE, RGCN_TRAIN_BATCH = 14, 12, 32
 RGCN_TRAIN = ["--arch", "rgcn", "--dataset", "mag-hetero", "--hetero",
               "--scale", str(RGCN_TRAIN_SCALE), "--batch-size",
               str(RGCN_TRAIN_BATCH)]
+# link prediction: GraphSAGE + dot at the paper's widths, 32 positive
+# edges a trainer with 16 uniform negatives each (576 endpoint seeds); typed
+# RGCN + distmult with exclusion, 8 edges x 2 negatives (32 seeds, the
+# node batch of train_rgcn); the evaluation ranks 49 negatives a positive
+LP_BATCH, LP_NEGS = 32, 16
+LP_TRAIN = ["--arch", "graphsage", "--task", "link_prediction",
+            "--dataset", "product-sim", "--batch-size", str(LP_BATCH),
+            "--num-negs", str(LP_NEGS)]
+LP_RGCN_TRAIN = ["--arch", "rgcn", "--dataset", "mag-hetero", "--hetero",
+                 "--task", "link_prediction", "--score-fn", "distmult",
+                 "--neg-exclude", "--scale", "5", "--batch-size", "8",
+                 "--num-negs", "2"]
 
 
 class SmokeFailure(RuntimeError):
@@ -318,11 +362,16 @@ def max_degree(torch, keys) -> int:
 
 
 def check_close(torch, got, want, rtol, atol, what) -> None:
-    ok = bool(torch.isclose(got.float(), want.float(), rtol=rtol,
-                            atol=atol).all())
-    require(ok, f"{what}: kernel disagrees with its plain version "
-                f"(max abs err {max_err(torch, got, want):.3e}, "
-                f"rtol={rtol}, atol={atol})")
+    close = torch.isclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    if bool(close.all()):
+        return
+    bad = (~close).nonzero()
+    first = tuple(int(i) for i in bad[0])
+    require(False, f"{what}: kernel disagrees with its plain version "
+                   f"(max abs err {max_err(torch, got, want):.3e}, "
+                   f"rtol={rtol}, atol={atol}; {bad.shape[0]} elements "
+                   f"outside, the first at {first}: {float(got[first])!r} "
+                   f"against {float(want[first])!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -1520,34 +1569,52 @@ def phase_training(torch, path: str, argv: list) -> tuple:
     (tr, params0, first, summary, wall), launches = counted(path, run)
     peak = torch.cuda.max_memory_allocated()
     losses = summary["epochs"][0]["losses"]
+    lp = tr.task == "link_prediction"
+    if lp:
+        val = summary["val_lp"]
+        val_ok = (0.0 < val["mrr"] <= 1.0
+                  and val["hits@1"] <= val["hits@3"] <= val["hits@10"] <= 1)
+        shown = "val " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()
+                                   if k != "num_edges") + (
+            f" over {val['num_edges']} edges x 49 negatives")
+        width = (f"edge batch {tr.cfg.batch_size} x {tr.job.num_negs} "
+                 f"{tr.job.neg_mode} negatives ({tr.node_cfg.batch_size} "
+                 f"seeds), {tr.job.score_fn} head")
+    else:
+        val_ok = 0.0 <= summary["val_acc"] <= 1.0
+        shown = f"val_acc {summary['val_acc']:.4f}"
+        width = f"batch {tr.cfg.batch_size}"
     require(len(losses) == tr.batches_per_epoch >= 1
-            and all(math.isfinite(x) for x in losses)
-            and 0.0 <= summary["val_acc"] <= 1.0,
-            f"{path}: losses {losses}, val_acc {summary['val_acc']}")
+            and all(math.isfinite(x) for x in losses) and val_ok,
+            f"{path}: losses {losses}, {shown}")
     log(f"[{path}] {tr.cfg.arch} in {tr.cfg.in_dim}, hidden "
-        f"{tr.cfg.hidden_dim}, {tr.cfg.num_classes} classes, fanouts "
-        f"{list(tr.cfg.fanouts)}, {tr.num_trainers} trainers x batch "
-        f"{tr.cfg.batch_size}: {len(losses)} steps, losses {losses}, val_acc "
-        f"{summary['val_acc']:.4f}, epoch {summary['epochs'][0]['time_s']:.3f}"
-        f" s, run with evaluation {wall:.3f} s; peak device memory "
-        f"{peak / 2**30:.3f} GiB ({peak} bytes)")
+        f"{tr.cfg.hidden_dim}, {tr.cfg.num_classes} outputs, fanouts "
+        f"{list(tr.cfg.fanouts)}, {tr.num_trainers} trainers x {width}: "
+        f"{len(losses)} steps, losses {losses}, {shown}, epoch "
+        f"{summary['epochs'][0]['time_s']:.3f} s, run with evaluation "
+        f"{wall:.3f} s; peak device memory {peak / 2**30:.3f} GiB ({peak} "
+        f"bytes)")
 
     # the first step against the plain versions, on the same card
-    loss, _acc, grads = tr.loss_and_grads(first, params=params0)
-    ref_loss, _ref_acc, ref_grads = tr.loss_and_grads(first, params=params0,
-                                                      impl="ref")
+    loss, acc, grads = tr.loss_and_grads(first, params=params0)
+    ref_loss, ref_acc, ref_grads = tr.loss_and_grads(first, params=params0,
+                                                     impl="ref")
     require(float(loss) == losses[0],
             f"{path}: the first step's loss recomputed ({float(loss)!r}) "
             f"differs from the run's ({losses[0]!r})")
     check_close(torch, loss, ref_loss, 1e-4, 1e-5, f"{path} first-step loss")
+    if lp:
+        check_close(torch, acc, ref_acc, 1e-4, 1e-5,
+                    f"{path} first-step MRR")
     errs = []
     for i, (a, b) in enumerate(zip(tree_leaves(grads),
                                    tree_leaves(ref_grads))):
         check_close(torch, a, b, 1e-4, 1e-5, f"{path} first-step grad {i}")
         errs.append(max_err(torch, a, b))
     log(f"[{path}] first step vs impl='ref': loss {float(loss):.6f} vs "
-        f"{float(ref_loss):.6f}, max grad abs err {max(errs):.3e} over "
-        f"{len(errs)} tensors")
+        f"{float(ref_loss):.6f}, {'MRR' if lp else 'accuracy'} "
+        f"{float(acc):.6f} vs {float(ref_acc):.6f}, max grad abs err "
+        f"{max(errs):.3e} over {len(errs)} tensors")
 
     # a second identical run ends with the same bytes
     tr2, _, _, summary2, _ = run()
@@ -1557,15 +1624,16 @@ def phase_training(torch, path: str, argv: list) -> tuple:
             f"{path}: two identical runs ended with different parameters "
             f"or losses")
     log(f"[{path}] a second identical run: bitwise-identical parameters "
-        f"({sum(p.numel() for p in tree_leaves(tr.params))} values) and "
-        f"losses")
+        f"({sum(p.numel() for p in tree_leaves(tr.params))} values"
+        f"{', rel_emb included' if 'rel_emb' in tr.params.get('lp', {}) else ''}"
+        f") and losses")
 
     steps = tr2.global_step
     spans = {k: v / steps for k, v in tr2.spans_ms().items()}
     host = {k: v for k, v in spans.items() if not k.startswith("device_")}
     total = sum(host.values())
     log(f"[breakdown] {path}, one step of {tr2.num_trainers} x "
-        f"{tr2.cfg.batch_size} seeds, mean of the second run's {steps} "
+        f"{tr2.node_cfg.batch_size} seeds, mean of the second run's {steps} "
         f"steps (host clock): "
         + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                     for k, v in host.items())
@@ -1573,15 +1641,23 @@ def phase_training(torch, path: str, argv: list) -> tuple:
         + ", ".join(f"{k[7:]} {v:.3f} ms" for k, v in spans.items()
                     if k.startswith("device_")))
     profile_step(torch, path, tr2, first)
-    caps = tr.cfg.dst_caps()
-    if tr.cfg.arch == "gat":
-        cases = gat_cases(torch, "train", first, caps, params0)
-    elif tr.cfg.arch == "rgcn":
-        cases = rgcn_cases(torch, "train rgcn", first, tr.cfg, params0,
+    # the encoder's kernels on the first step's batch, at the node batch
+    # (for link prediction the endpoints of the edge batch)
+    cfg = tr.node_cfg
+    gnn0 = params0["gnn"] if lp else params0
+    tag = "train lp" if lp else "train"
+    if cfg.arch == "gat":
+        cases = gat_cases(torch, tag, first, cfg.dst_caps(), gnn0)
+    elif cfg.arch == "rgcn":
+        cases = rgcn_cases(torch, f"{tag} rgcn", first, cfg, gnn0,
                            tr.etype_id, backward=True)
     else:
-        cases = layer_cases(torch, "train", first, caps, params0,
+        cases = layer_cases(torch, tag, first, cfg.dst_caps(), gnn0,
                             backward=True)
+    if lp:
+        cases["segment_sum"] = cases["segment_sum"] + lp_head_cases(
+            torch, tag, first, cfg.num_classes, tr.job.score_fn,
+            cfg.num_rels)
     del tr, tr2, first, grads, ref_grads
     torch.cuda.empty_cache()
     return launches, cases
@@ -1593,8 +1669,14 @@ def profile_step(torch, path: str, tr, stacked) -> None:
     and the operators that take the most host and device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import CUDA_WRAPPERS
+
+    for w in CUDA_WRAPPERS.values():
+        w.launches = 0
     tr.train_step(stacked)                       # warm
     torch.cuda.synchronize()
+    log(f"[profile] {path}: launches in one step: " + json.dumps(
+        {n: w.launches for n, w in CUDA_WRAPPERS.items() if w.launches}))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2010,6 +2092,187 @@ def phase_rgcn_untyped(torch) -> None:
         f"impl='ref' max abs err {err:.3e}")
 
 
+def phase_lp_heads(torch) -> None:
+    """The link-prediction head on the card at ``train_lp``'s shapes (4
+    trainers x 32 positive edges, embeddings of 256; 16 uniform negatives
+    or in-batch draws; distmult over mag-hetero's 4 relations, one a
+    slot): ``lp_pair_scores``, the BCE loss and ``lp_ranks``, for {dot,
+    distmult} x {uniform, in-batch}, twice. Scores, ranks and gradients
+    must be bitwise equal between the two runs (the gathers' gradients
+    sum repeated rows with K2 in a fixed order: in-batch draws repeat
+    destinations, and a typed batch reads one relation row B times) and
+    within rtol 1e-4, atol 1e-5 of the CPU plain path; the ranks of the
+    card's scores must equal the CPU's ranks of the same scores. The
+    plain path on the card (``impl="ref"``, ``index_select``, whose
+    backward adds with atomics) is run twice too, and whether its bits
+    repeat is logged."""
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.models.gnn import (lp_loss_from_scores, lp_pair_scores,
+                                        lp_ranks)
+
+    s, b, k, d, r = 4, LP_BATCH, LP_NEGS, 256, 4
+    rng = np.random.default_rng(5)
+    for neg_mode in ("uniform", "in-batch"):
+        n = 2 * b + (0 if neg_mode == "in-batch" else b * k)
+        h = rng.standard_normal((s, n, d)).astype(np.float32)
+        pos_u = np.tile(np.arange(b, dtype=np.int32), (s, 1))
+        if neg_mode == "in-batch":
+            neg_v = (b + rng.integers(0, b, size=(s, b, k))).astype(np.int32)
+        else:
+            neg_v = np.broadcast_to(
+                (2 * b + np.arange(b * k, dtype=np.int32)).reshape(b, k),
+                (s, b, k)).copy()
+        etypes = np.repeat(rng.integers(0, r, size=(s, 1)), b,
+                           axis=1).astype(np.int32)
+        rel_emb = (1 + 0.1 * rng.standard_normal((r, d))).astype(np.float32)
+        mask = np.ones((s, b), dtype=bool)
+        mask[-1, -5:] = False
+        for score_fn in ("dot", "distmult"):
+            def run(device, impl="auto"):
+                th = torch.from_numpy(h).to(device).requires_grad_()
+                rel = torch.from_numpy(rel_emb).to(device).requires_grad_()
+                head = {"rel_emb": rel} if score_fn == "distmult" else {}
+                kw = dict(head=head, score_fn=score_fn, impl=impl,
+                          etypes=torch.from_numpy(etypes).to(device))
+                u = torch.from_numpy(pos_u).to(device)
+                pos = lp_pair_scores(th, u, u + b, **kw)
+                neg = lp_pair_scores(th, u, torch.from_numpy(neg_v).to(
+                    device), **kw)
+                loss = lp_loss_from_scores(
+                    pos, neg, torch.from_numpy(mask).to(device)).mean()
+                grads = torch.autograd.grad(loss, (th, rel) if head
+                                            else (th,))
+                out = [pos.detach(), neg.detach(), lp_ranks(pos, neg),
+                       loss.detach(), *grads]
+                return [t.cpu() for t in out]
+
+            what = f"lp_heads {score_fn} {neg_mode}"
+            for w in CUDA_WRAPPERS.values():
+                w.launches = 0
+            first = run(DEVICE)
+            k2 = CUDA_WRAPPERS["segment_sum"].launches
+            second, plain = run(DEVICE), run("cpu")
+            require(k2 == (6 if score_fn == "distmult" else 4),
+                    f"{what}: K2 launched {k2} times, not once a gather")
+            require(all(torch.equal(x, y) for x, y in zip(first, second)),
+                    f"{what}: two runs on the card differ")
+            require(torch.equal(lp_ranks(first[0], first[1]), first[2]),
+                    f"{what}: the CPU's ranks of the card's scores differ")
+            errs = []
+            for i, (x, y) in enumerate(zip(first, plain)):
+                if i == 2:
+                    continue
+                check_close(torch, x, y, 1e-4, 1e-5, f"{what} output {i}")
+                errs.append(max_err(torch, x, y))
+            ref1, ref2 = run(DEVICE, "ref"), run(DEVICE, "ref")
+            same = all(torch.equal(x, y) for x, y in zip(ref1, ref2))
+            ranks_equal = int((first[2] == plain[2]).sum())
+            log(f"[lp_heads] {score_fn} {neg_mode}: scores (4, {b}) and (4, "
+                f"{b}, {k}) at width {d}, K2 {k2} launches a run, two runs "
+                f"bitwise equal; against the CPU plain path max abs err "
+                f"{max(errs):.3e}, ranks equal on {ranks_equal} of "
+                f"{first[2].numel()}; the card's plain path (index_select) "
+                f"{'repeats its bits' if same else 'differs between runs'}")
+
+
+def lp_head_cases(torch, tag, batch, width, score_fn, num_rels) -> list:
+    """K2 as the gradients of the link-prediction head's gathers on one
+    staged stacked batch, one case for each launch of a step in launch
+    order (``lp_pair_scores`` for the positives, then the negatives: the
+    rows of ``pos_u``, with distmult ``rel_emb[etypes]``, then those of
+    ``pos_v`` or ``neg_v``), each keyed as ``_rows`` keys it (the stack
+    slot's offset added, every key live) over gradient rows of the
+    embedding width from a seeded generator; a launch repeated with the
+    same keys (``pos_u``, ``rel_emb``) is timed once and listed again."""
+    from repro_torch.kernels import edge_groups
+
+    s, n = batch["seed_mask"].shape
+    base = torch.arange(s, device=DEVICE) * n
+    keyed = {"pos_u": (batch["pos_u"] + base[:, None], s * n, width),
+             "pos_v": (batch["pos_v"] + base[:, None], s * n, width),
+             "neg_v": (batch["neg_v"] + base[:, None, None], s * n, width)}
+    if score_fn == "distmult":
+        keyed["rel_emb"] = (batch["edge_etypes"], num_rels, width)
+    order = ["pos_u", "rel_emb", "pos_v", "pos_u", "rel_emb", "neg_v"]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    timed, cases = {}, []
+    for name in order:
+        if name not in keyed:
+            continue
+        if name not in timed:
+            idx, groups_n, f = keyed[name]
+            keys = idx.reshape(-1).to(torch.int32)
+            live = torch.ones_like(keys, dtype=torch.bool)
+            grad = torch.randn((keys.numel(), f), generator=gen,
+                               device=DEVICE)
+            flat = {"edge_dst": keys, "edge_mask": live}
+            out = []
+            k2_case(torch, f"head {name} {tag}", grad, flat, groups_n,
+                    edge_groups(keys, live, groups_n), out, 1e-5, 1e-5)
+            timed[name] = out[0]
+            del grad
+        cases.append(timed[name])
+    return cases
+
+
+def phase_lp_batch(torch) -> dict:
+    """The ``train_lp`` step's kernels on one first-step batch of a graph
+    whose ego-networks do not cover it: ``train_lp``'s command on
+    product-sim scale 14 (the kernels phase's graph), the trainer built and
+    one stacked batch drawn, no epoch run. Scale 7's 128 nodes make most
+    of the step's slots padding; here they are mostly live. Returns K1, its
+    backward and K2 (as ``_degrees`` and as the head's gathers) on every
+    layer, as ``phase_training`` times them."""
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(
+        LP_TRAIN + ["--scale", str(SCALE), "--device", DEVICE])
+    t0 = time.perf_counter()
+    _ds, tr = train.build_trainer(args)
+    try:
+        first = tr._stack([next(ld.epoch(0)).model_input()
+                           for ld in tr.loaders])
+    finally:
+        tr.stop()
+    torch.cuda.synchronize()
+    cfg = tr.node_cfg
+    log(f"[lp_batch] product-sim scale {SCALE}: trainer built and one "
+        f"stacked batch of {tr.num_trainers} x {tr.cfg.batch_size} edges x "
+        f"{tr.job.num_negs} negatives ({cfg.batch_size} seeds a trainer) "
+        f"drawn and staged in {time.perf_counter() - t0:.2f} s")
+    cases = layer_cases(torch, "lp s14", first, cfg.dst_caps(),
+                        tr.params["gnn"], backward=True)
+    cases["segment_sum"] += lp_head_cases(
+        torch, "lp s14", first, cfg.num_classes, tr.job.score_fn,
+        cfg.num_rels)
+    del tr, first
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_link_prediction(torch, launches: dict, extra: dict) -> None:
+    """The link-prediction main paths (GraphSAGE + dot, typed RGCN +
+    distmult, recovery) and the score head alone, each timed; their launch
+    counts go to ``launches`` and their steps' kernel cases to
+    ``extra``."""
+    for path, argv in (("train_lp", LP_TRAIN + ["--scale", "7"]),
+                       ("train_lp_rgcn", LP_RGCN_TRAIN)):
+        t0 = time.perf_counter()
+        launches[path], extra[f"{path}_step"] = phase_training(
+            torch, path, argv)
+        log(f"[{path}] phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    extra["lp_step_scale14"] = phase_lp_batch(torch)
+    log(f"[lp_batch] phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches["recover_lp"] = phase_recovery(
+        torch, "recover_lp", LP_TRAIN + ["--scale", "6"])
+    log(f"[recover_lp] phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_lp_heads(torch)
+    log(f"[lp_heads] phase {time.perf_counter() - t0:.2f} s")
+
+
 def _sums(cases: list) -> dict:
     """Times summed over the cases the main path runs; ``library_ms`` is
     null where no single PyTorch call computes the same function."""
@@ -2046,7 +2309,7 @@ GAT_SHAPES = ("sum over the 3 layers of one GAT training step (4 trainers "
 
 
 def report(primary: dict, paper: dict, launches: dict,
-           sage_step: dict, rgcn: dict) -> dict:
+           sage_step: dict, extra: dict) -> dict:
     """Per kernel: its times summed over the layers of the main path's
     shapes (a serving tick at the gnn_serve defaults, or a training step
     of launch.train), the same sums for one batch-1000 forward (and
@@ -2054,7 +2317,10 @@ def report(primary: dict, paper: dict, launches: dict,
     K1's forward and K2 as ``_degrees`` also at one GraphSAGE training
     step (``train_graphsage_step``), and K1, its backward and K2 summed
     over the relations and layers of one RGCN tick and step
-    (``serving_rgcn_tick``, ``train_rgcn_step``)."""
+    (``serving_rgcn_tick``, ``train_rgcn_step``) and of one
+    link-prediction step (``train_lp_step``, ``train_lp_rgcn_step``; K2
+    there with the head's gathers) and of one first-step batch of
+    ``train_lp``'s command on scale 14 (``lp_step_scale14``)."""
     out = []
     for name, meta in KERNELS.items():
         by_path = {p: launches[p][meta["wrapper"]] for p in meta["paths"]}
@@ -2067,7 +2333,7 @@ def report(primary: dict, paper: dict, launches: dict,
                                else None)}
         if name in ("fused_gather_aggregate", "segment_sum"):
             row["train_graphsage_step"] = _sums(sage_step[name])
-        for key, cases in rgcn.items():
+        for key, cases in extra.items():
             if cases.get(name):
                 row[key] = _sums(cases[name])
         out.append(row)
@@ -2130,21 +2396,22 @@ def main() -> int:
     launches["train_recover"] = phase_recovery(
         torch, "train_recover", ["--arch", "graphsage"] + product)
     launches["embedding"] = phase_embedding(torch)
-    rgcn = {}
-    launches["serving_rgcn"], rgcn["serving_rgcn_tick"] = \
+    extra = {}
+    launches["serving_rgcn"], extra["serving_rgcn_tick"] = \
         phase_serving_rgcn(torch)
-    launches["train_rgcn"], rgcn["train_rgcn_step"] = phase_training(
+    launches["train_rgcn"], extra["train_rgcn_step"] = phase_training(
         torch, "train_rgcn", RGCN_TRAIN)
     launches["recover_rgcn"] = phase_recovery(torch, "recover_rgcn",
                                               RGCN_TRAIN)
     phase_rgcn_untyped(torch)
+    phase_link_prediction(torch, launches, extra)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]
     primary["sparse_adam"] = k5
     primary["gather_rows"] = k6[:1]
 
-    print(json.dumps(report(primary, paper, launches, sage_train, rgcn)))
+    print(json.dumps(report(primary, paper, launches, sage_train, extra)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,12 @@ kernel on a ported path is a hand-written CUDA kernel for Hopper
 asks for ``device="cpu"``.
 
 The public surface is ``repro_torch.api`` (``DistGraph``,
-``NodeDataLoader``, ``DistEmbedding``, ``DistGNNTrainer``,
-``InferenceServer``); its names are re-exported here lazily.
+``NodeDataLoader``, ``EdgeDataLoader``, ``DistEmbedding``,
+``DistGNNTrainer``, ``InferenceServer``); its names are re-exported here
+lazily.
 """
 __all__ = ["DistGraph", "DistTensor", "DistEmbedding", "SparseAdamConfig",
-           "NodeDataLoader", "DistGNNTrainer",
+           "NodeDataLoader", "EdgeDataLoader", "DistGNNTrainer",
            "TrainJobConfig", "InferenceServer", "PredictionHandle",
            "ServerOverloaded", "DeadlineExceeded"]
 

@@ -1,5 +1,6 @@
 """``repro_torch.api`` -- the ported public surface: the DGL-style
-:class:`DistGraph`, :class:`NodeDataLoader` and :class:`DistEmbedding`
+:class:`DistGraph`, :class:`NodeDataLoader`, :class:`EdgeDataLoader`
+and :class:`DistEmbedding`
 (learnable rows in the KVStore, row-sparse Adam at the owners), the
 synchronous :class:`DistGNNTrainer` (with checkpoints and recovery) and
 the online :class:`InferenceServer`.
@@ -10,21 +11,20 @@ the online :class:`InferenceServer`.
     with InferenceServer(g, cfg, params, device="cuda") as srv:
         logits = srv.predict([0, 1, 2])
 
-The edge loader and ``offline_embeddings`` are not ported yet (ROADMAP
-queue A).
+``offline_embeddings`` is not ported yet (ROADMAP queue A item 8).
 """
 from ..core.kvstore.embedding import DistEmbedding, SparseAdamConfig
 from ..core.kvstore.faults import (FaultInjector, OwnerDownWindow,
                                    OwnerUnavailable, RPCRetriesExhausted,
                                    TrainerDeath, TransientRPCError)
-from .dataloader import NodeBatch, NodeDataLoader
+from .dataloader import EdgeBatch, EdgeDataLoader, NodeBatch, NodeDataLoader
 from .dist_graph import DistGraph, DistTensor
 from .inference import (DeadlineExceeded, InferenceServer, PredictionHandle,
                         ServerOverloaded)
 
 __all__ = [
     "DistGraph", "DistTensor", "DistEmbedding", "SparseAdamConfig",
-    "NodeBatch", "NodeDataLoader",
+    "NodeBatch", "NodeDataLoader", "EdgeBatch", "EdgeDataLoader",
     "DistGNNTrainer", "TrainJobConfig",
     "InferenceServer", "PredictionHandle",
     "ServerOverloaded", "DeadlineExceeded",

@@ -1,8 +1,9 @@
-"""DGL-compatible node mini-batch loader over the async pipeline, the port
-of ``repro/api/dataloader.py``'s :class:`NodeDataLoader`.
+"""DGL-compatible mini-batch loaders over the async pipeline, the port of
+``repro/api/dataloader.py``.
 
-:class:`NodeDataLoader` is a true Python iterable wrapping
-:class:`~repro_torch.core.pipeline.NodeMinibatchPipeline`, so the
+:class:`NodeDataLoader` / :class:`EdgeDataLoader` are true Python iterables
+wrapping :class:`~repro_torch.core.pipeline.NodeMinibatchPipeline` /
+:class:`~repro_torch.core.pipeline.LinkMinibatchPipeline`, so the
 canonical DGL training loop works against the distributed stack::
 
     loader = NodeDataLoader(g, train_nids, [10, 5], batch_size=32)
@@ -12,7 +13,8 @@ canonical DGL training loop works against the distributed stack::
 
 The contract is the reference's: each ``iter(loader)`` serves ONE epoch
 and ends with a clean ``StopIteration``; the item unpacks as
-``(input_nodes, seeds, blocks)`` and also exposes the padded batch and
+``(input_nodes, seeds, blocks)`` (node) / ``(input_nodes, pair_graph,
+blocks)`` (edge) and also exposes the padded batch and
 ``model_input()``; breaking out mid-epoch is safe (``close()`` drains,
 joins and rewinds, so the next iteration re-serves the SAME epoch
 byte-identically); ``mode="eval"`` runs the deterministic inline
@@ -21,8 +23,9 @@ sampling RPCs uncharged, no threads). The host batches are byte-identical
 to the reference loader's for the same seeds.
 
 On a typed graph (``g.hetero``) the sampler draws per relation and the
-features of each node type come through ``KVClient.pull_typed``. The edge
-loader (link prediction) is not ported yet (ROADMAP queue A item 5).
+features of each node type come through ``KVClient.pull_typed``; the edge
+loader then schedules one relation a batch and draws its negatives from
+the relation's destination node type.
 """
 from __future__ import annotations
 
@@ -30,11 +33,14 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ..core.pipeline.minibatch import NodeMinibatchPipeline, host_blocks
-from ..core.sampler import DistributedSampler, sample_ego_networks
+from ..core.pipeline.minibatch import (LinkMinibatchPipeline,
+                                       NodeMinibatchPipeline, edge_model_tree,
+                                       host_blocks)
+from ..core.sampler import (DistributedSampler, EdgeBatchSampler,
+                            sample_ego_networks)
 from .dist_graph import DistGraph
 
-__all__ = ["NodeBatch", "NodeDataLoader"]
+__all__ = ["NodeBatch", "NodeDataLoader", "EdgeBatch", "EdgeDataLoader"]
 
 _MODES = ("train", "eval")
 
@@ -77,9 +83,40 @@ class NodeBatch:
         if self.device is not None:
             tree = self.device.unpack()
             return {k: tree[k] for k in self._model_keys}
+        return self._host_input()
+
+    def _host_input(self) -> dict:
         mb = self.minibatch
         return dict(input_feats=mb.input_feats, labels=mb.labels,
                     seed_mask=mb.seed_mask, blocks=host_blocks(mb))
+
+
+class EdgeBatch(NodeBatch):
+    """One edge (link-prediction) mini-batch: unpacks as DGL's
+    ``(input_nodes, pair_graph, blocks)`` triple."""
+
+    __slots__ = ()
+
+    def __iter__(self):
+        return iter((self.input_nodes, self.pair_graph, self.blocks))
+
+    pair_graph = property(lambda self: self.minibatch.pair_graph)
+    pos_u = property(lambda self: self.minibatch.pos_u)
+    pos_v = property(lambda self: self.minibatch.pos_v)
+    neg_v = property(lambda self: self.minibatch.neg_v)
+    pair_mask = property(lambda self: self.minibatch.pair_mask)
+    edge_etypes = property(lambda self: self.minibatch.edge_etypes)
+    pos_src = property(lambda self: self.minibatch.pos_src)
+    pos_dst = property(lambda self: self.minibatch.pos_dst)
+    neg_dst = property(lambda self: self.minibatch.neg_dst)
+    pos_eids = property(lambda self: self.minibatch.pos_eids)
+    etype = property(lambda self: self.minibatch.etype)
+
+    _model_keys = ("input_feats", "seed_mask", "pos_u", "pos_v", "neg_v",
+                   "pair_mask", "edge_etypes", "blocks")
+
+    def _host_input(self) -> dict:
+        return edge_model_tree(self.minibatch)
 
 
 class _BaseLoader:
@@ -248,3 +285,87 @@ class NodeDataLoader(_BaseLoader):
                                       else None):
             yield NodeBatch(mb)
 
+
+
+class EdgeDataLoader(_BaseLoader):
+    """DGL's ``EdgeDataLoader``: positive-edge mini-batches with negative
+    sampling and endpoint ego-networks, over the same async pipeline.
+    ``batch_size`` counts POSITIVE EDGES; the node sampler runs at the
+    derived endpoint capacity ``2B + B*K`` (``2B`` for in-batch negatives).
+
+    ``eids`` is this trainer's positive-edge pool (NEW edge-id space,
+    :meth:`DistGraph.edge_split`). On the typed path each scheduled batch
+    carries one relation and negatives are drawn type-correctly from the
+    relation's destination node type. ``edge_seed`` drives the positive
+    schedule and negative draws; ``mode="eval"`` runs the deterministic
+    evaluation protocol (a fresh schedule from ``edge_seed`` each
+    iteration, ad-hoc sampler coordinates, sampling RPCs uncharged, no
+    threads). The batches are byte-identical to the reference loader's
+    for the same seeds.
+    """
+
+    _wrap_cls = EdgeBatch
+
+    def __init__(self, g: DistGraph, eids: np.ndarray, fanouts, *,
+                 batch_size: int, num_negs: int = 16,
+                 neg_mode: str = "uniform", neg_exclude: bool = False,
+                 sample_workers: int = 1, cache=None,
+                 device_prefetch: bool = False, device="cuda",
+                 sync: bool = False, non_stop: bool = True,
+                 depths: Optional[dict] = None, seed: int = 0,
+                 sampler_seed: Optional[int] = None,
+                 edge_seed: Optional[int] = None, mode: str = "train"):
+        super().__init__(g, mode)
+        self.batch_size = int(batch_size)
+        self.num_negs = int(num_negs)
+        eval_mode = mode == "eval"
+        node_bs = EdgeBatchSampler.required_node_batch(
+            batch_size, num_negs, neg_mode)
+        self.sampler = DistributedSampler(
+            g.book, g.partitions, fanouts, node_bs, machine=g.machine,
+            transport=None if eval_mode else g.transport,
+            seed=seed + 100 if sampler_seed is None else sampler_seed,
+            schema=g.schema if g.hetero else None,
+            ntype_of_node=g.typed.ntype_of_node if g.hetero else None)
+        neg_pools = etype_of_edge = schema = None
+        if g.hetero:
+            schema = g.schema
+            etype_of_edge = g.typed.etype_of_edge
+            neg_pools = [g.typed.type2node[schema.dst_ntype_id(r)]
+                         for r in range(schema.num_etypes)]
+        e_src, e_dst = g.edge_endpoints()
+        self._edge_seed = seed + 300 if edge_seed is None else edge_seed
+        self.edge_sampler = EdgeBatchSampler(
+            self.sampler, e_src, e_dst, np.asarray(eids, dtype=np.int64),
+            batch_size, num_negs, neg_mode=neg_mode,
+            etype_of_edge=etype_of_edge, schema=schema, neg_pools=neg_pools,
+            exclude_batch_positives=neg_exclude, seed=self._edge_seed)
+        self._client = g.new_client()
+        self.cache = cache
+        if not eval_mode:
+            self.pipeline = LinkMinibatchPipeline(
+                self.edge_sampler, self._client, g.feat_name, sync=sync,
+                non_stop=non_stop, depths=depths, to_device=device_prefetch,
+                device=device, seed=seed, typed=g.typed, cache=cache,
+                sample_workers=sample_workers)
+
+    def __len__(self) -> int:
+        return self.edge_sampler.batches_per_epoch
+
+    def _pull_feats(self, mb) -> np.ndarray:
+        g = self.g
+        if g.hetero:
+            return self._client.pull_typed(g.feat_name, mb.input_gids,
+                                           g.typed, ntypes=mb.input_ntypes)
+        return self._client.pull(g.feat_name, mb.input_gids)
+
+    def _eval_iter(self) -> Iterator[EdgeBatch]:
+        # the trainer's link-prediction evaluation protocol: a fresh
+        # deterministic schedule per iteration, so evaluations before and
+        # after training rank the same edges against the same candidates
+        rng = np.random.default_rng(self._edge_seed)
+        for _e, b, et, eids in self.edge_sampler.schedule(rng, 0):
+            emb = self.edge_sampler.sample_edges(eids, etype=et,
+                                                 batch_index=b)
+            emb.input_feats = self._pull_feats(emb)
+            yield EdgeBatch(emb)

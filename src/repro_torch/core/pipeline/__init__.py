@@ -1,4 +1,5 @@
 from .async_pipeline import AsyncPipeline, Stage, StageStats
-from .minibatch import NodeMinibatchPipeline
+from .minibatch import LinkMinibatchPipeline, NodeMinibatchPipeline
 
-__all__ = ["AsyncPipeline", "Stage", "StageStats", "NodeMinibatchPipeline"]
+__all__ = ["AsyncPipeline", "Stage", "StageStats", "LinkMinibatchPipeline",
+           "NodeMinibatchPipeline"]

@@ -20,12 +20,12 @@ of ``repro/core/pipeline/minibatch.py``'s node pipeline, built on
 baseline. The host stages and their schedule are the reference's, so the
 batches are byte-identical to its pipeline's for the same seeds. On a
 typed graph (``typed``, the world's ``TypedPartitionData``) the CPU
-prefetch pulls each node type's features through its own policy. The edge
-(link-prediction) pipeline is not ported yet (ROADMAP queue A item 5). The
-class has its own name: the API-boundary check
-(``tools/check_docs.py``) keeps every construction of the reference's
-pipeline class inside ``repro/api``, and the port's loaders are the only
-place this one is built.
+prefetch pulls each node type's features through its own policy.
+:class:`LinkMinibatchPipeline` drives edge (link-prediction) mini-batches
+through the same stages. Both classes have their own names: the
+API-boundary check (``tools/check_docs.py``) keeps every construction of
+the reference's pipeline classes inside ``repro/api``, and the port's
+loaders are the only place these are built.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import numpy as np
 from ...kernels.pack import device_stage
 from ..kvstore.store import KVClient
 from ..sampler.dispatch import DistributedSampler
+from ..sampler.edge_batch import EdgeBatchSampler, EdgeMiniBatch
 from ..sampler.mfg import MiniBatch
 from ..sampler.prng import STREAM_SCHEDULE, batch_rng
 from .async_pipeline import AsyncPipeline, Stage
@@ -243,3 +244,56 @@ class NodeMinibatchPipeline:
 
     def stats_report(self) -> dict:
         return {} if self._pipe is None else self._pipe.stats_report()
+
+
+class LinkMinibatchPipeline(NodeMinibatchPipeline):
+    """The same 5-stage async pipeline driving *edge* mini-batches (link
+    prediction), the port of ``repro/core/pipeline/minibatch.py``'s
+    ``EdgeMinibatchPipeline``: edge scheduling -> endpoint ego-network
+    sampling -> CPU feature prefetch (cached KVStore pulls) -> device
+    prefetch -> compaction in the consumer.
+
+    Only stages 1-2 and the staged tree change: the schedule permutes the
+    trainer's owned positive edges (per relation on the typed path)
+    instead of its seed nodes, and the sample stage wraps the node sampler
+    through ``EdgeBatchSampler``. The ``EdgeMiniBatch`` it emits
+    duck-types the ``MiniBatch`` surface, so the CPU prefetch (and the
+    hot-vertex cache under it) is inherited unchanged.
+    """
+
+    def __init__(self, edge_sampler: EdgeBatchSampler, kv_client: KVClient,
+                 feat_name: str, **kw):
+        self.edge_sampler = edge_sampler
+        super().__init__(edge_sampler.node_sampler, kv_client, feat_name,
+                         seeds=edge_sampler.owned_eids,
+                         batch_size=edge_sampler.batch_edges, **kw)
+        # per-relation pools drop their own tails, so the count is not
+        # len(owned) // B on typed runs: ask the edge scheduler
+        self.batches_per_epoch = edge_sampler.batches_per_epoch
+
+    # ---- stages -------------------------------------------------------
+    def _stage_sample(self, item) -> EdgeMiniBatch:
+        epoch, b, etype, eids = item
+        return self.edge_sampler.sample_edges(eids, etype=etype,
+                                              batch_index=b, epoch=epoch)
+
+    def _stage_device_prefetch(self, emb: EdgeMiniBatch):
+        if not self.to_device:
+            return emb
+        return emb, device_stage(edge_model_tree(emb), self.device)
+
+    # ---- driving ------------------------------------------------------
+    def _schedule_source(self, epochs: Iterator[int], start_batch: int = 0):
+        for e in epochs:
+            yield from self.edge_sampler.schedule(self._epoch_rng(e), e,
+                                                  start_batch=start_batch)
+            start_batch = 0
+
+
+def edge_model_tree(emb: EdgeMiniBatch) -> dict:
+    """The host arrays of an edge mini-batch that the link-prediction step
+    consumes (the reference's edge device-prefetch tree)."""
+    return dict(input_feats=emb.input_feats, seed_mask=emb.seed_mask,
+                pos_u=emb.pos_u, pos_v=emb.pos_v, neg_v=emb.neg_v,
+                pair_mask=emb.pair_mask, edge_etypes=emb.edge_etypes,
+                blocks=host_blocks(emb))

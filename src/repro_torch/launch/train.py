@@ -1,7 +1,7 @@
 """Training launcher (the port of ``repro/launch/train.py``'s GNN branch).
 
-Synchronous mini-batch node classification over a partitioned graph, on
-the card unless ``--device cpu`` is given:
+Synchronous mini-batch node classification or link prediction over a
+partitioned graph, on the card unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat \
         --dataset product-sim --machines 2 --trainers-per-machine 2 \
@@ -26,8 +26,21 @@ unless ``--rel-fanout REL=K`` overrides it (0 stops sampling it)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn \
         --dataset mag-hetero --hetero --rel-fanout cites=10 --epochs 3
 
-Link prediction (``--task link_prediction``) and the LM stack are not
-ported yet: each raises ``NotImplementedError`` naming its ROADMAP item.
+Link prediction (``--task link_prediction``) trains on edge mini-batches:
+``--batch-size`` counts positive edges, each with ``--num-negs`` negatives
+(``--neg-mode uniform|in-batch``, ``--neg-exclude`` re-draws those that
+collide with a positive of the batch), scored by ``--score-fn
+dot|distmult`` on output embeddings of the hidden width; the run ends with
+MRR and Hits@10 over held-out candidates::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage \
+        --task link_prediction --num-negs 16 --epochs 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rgcn \
+        --dataset mag-hetero --hetero --task link_prediction \
+        --score-fn distmult --neg-exclude --epochs 1
+
+The LM stack is not ported yet: its archs raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -43,9 +56,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(f"arch {args.arch!r}: the LM stack is not "
                                   f"ported to repro_torch yet: ROADMAP "
                                   f"queue A item 10")
-    if args.task != "node_classification":
-        raise NotImplementedError("--task link_prediction is not ported to "
-                                  "repro_torch yet: ROADMAP queue A item 5")
 
 
 def _kill_at(args):
@@ -96,8 +106,12 @@ def build_trainer(args):
                          "--checkpoint-interval need --checkpoint-dir")
     cfg = get_config(args.arch)
     ds = get_dataset(args.dataset, scale=args.scale)
+    # link prediction: the model's output is an embedding of the hidden
+    # width, not class logits, and batch_size counts POSITIVE EDGES
+    out_dim = (cfg.hidden_dim if args.task == "link_prediction"
+               else ds.num_classes)
     cfg = dataclasses.replace(cfg, in_dim=ds.feats.shape[1],
-                              num_classes=ds.num_classes,
+                              num_classes=out_dim,
                               batch_size=min(cfg.batch_size,
                                              args.batch_size),
                               num_rels=ds.graph.num_etypes)
@@ -123,6 +137,8 @@ def build_trainer(args):
         trainers_per_machine=args.trainers_per_machine,
         partition_method=args.partition, sync=args.sync,
         non_stop=not args.no_nonstop, cache=cache,
+        task=args.task, num_negs=args.num_negs, score_fn=args.score_fn,
+        neg_mode=args.neg_mode, neg_exclude=args.neg_exclude,
         sample_workers=args.sample_workers, impl=args.impl,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
@@ -155,9 +171,11 @@ def _revive(tr, args):
 def run_gnn(args, trainer=None) -> dict:
     """Train ``args.epochs`` epochs (with a trainer built from ``args``
     unless one is given), reviving a killed trainer from its last
-    checkpoint, evaluate on the validation nodes, print the summary JSON
-    and return it with the final trainer (``"trainer"``, stopped) and the
-    coordinates it revived from (``"revived"``)."""
+    checkpoint, evaluate (validation accuracy, or for link prediction MRR
+    and Hits@k from :meth:`~repro_torch.api.DistGNNTrainer.evaluate_lp`),
+    print the summary JSON and return it with the final trainer
+    (``"trainer"``, stopped) and the coordinates it revived from
+    (``"revived"``)."""
     from ..api import TrainerDeath
 
     if trainer is None:
@@ -165,7 +183,9 @@ def run_gnn(args, trainer=None) -> dict:
     else:
         tr = trainer
         ds = tr.ds
-    print(f"[train] {args.arch} on {args.dataset} ({tr.device}): "
+    lp = tr.task == "link_prediction"
+    metric = "mrr" if lp else "acc"
+    print(f"[train] {args.arch}/{tr.task} on {args.dataset} ({tr.device}): "
           f"{tr.num_trainers} trainers, {tr.batches_per_epoch} "
           f"batches/epoch, seed locality "
           f"{tr.locality['mean_local_frac']:.2f}", flush=True)
@@ -198,17 +218,25 @@ def run_gnn(args, trainer=None) -> dict:
                           f"{meta['batch_index']}", flush=True)
                 continue
             epochs.append(m)
-            print(f"[epoch {e}] loss={m['loss']:.4f} acc={m['acc']:.3f} "
+            print(f"[epoch {e}] loss={m['loss']:.4f} {metric}={m['acc']:.3f} "
                   f"time={m['time_s']:.2f}s", flush=True)
             e += 1
-        val = tr.evaluate(ds.val_nids)
+        val = tr.evaluate_lp() if lp else tr.evaluate(ds.val_nids)
     finally:
         tr.stop()
     stats = tr.sampling_stats()
-    print(f"[final] val_acc={val:.3f} stats={json.dumps(stats)}",
-          flush=True)
-    return {"epochs": epochs, "val_acc": val, "stats": stats,
-            "spans_ms": tr.spans_ms(), "trainer": tr, "revived": revived}
+    out = {"epochs": epochs, "stats": stats, "spans_ms": tr.spans_ms(),
+           "trainer": tr, "revived": revived}
+    if lp:
+        print(f"[final] val_mrr={val['mrr']:.3f} "
+              f"hits@10={val['hits@10']:.3f} stats={json.dumps(stats)}",
+              flush=True)
+        out["val_lp"] = val
+    else:
+        print(f"[final] val_acc={val:.3f} stats={json.dumps(stats)}",
+              flush=True)
+        out["val_acc"] = val
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -231,11 +259,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=3,
                     help="training epochs")
     ap.add_argument("--batch-size", type=int, default=8,
-                    help="seeds per batch per trainer (capped at the "
-                         "config's batch)")
+                    help="seeds (link prediction: positive edges) per batch "
+                         "per trainer (capped at the config's batch)")
     ap.add_argument("--task", default="node_classification",
                     choices=["node_classification", "link_prediction"],
-                    help="GNN workload (link prediction is not ported yet)")
+                    help="GNN workload: node classification or edge "
+                         "mini-batch link prediction (§6)")
+    ap.add_argument("--num-negs", type=int, default=16,
+                    help="link prediction: uniform negatives per positive "
+                         "edge (static (B, K) shape; too few can collapse "
+                         "the BCE score head)")
+    ap.add_argument("--score-fn", default="dot", choices=["dot", "distmult"],
+                    help="link-prediction scoring head (distmult learns "
+                         "one diagonal relation embedding per etype)")
+    ap.add_argument("--neg-mode", default="uniform",
+                    choices=["uniform", "in-batch"],
+                    help="negative sampling: fresh uniform nodes (own "
+                         "ego-networks) or in-batch corrupted dsts")
+    ap.add_argument("--neg-exclude", action="store_true",
+                    help="re-draw negatives that collide with a positive "
+                         "pair of the same batch (false-negative filter)")
     ap.add_argument("--hetero", action="store_true",
                     help="typed relations end-to-end (RGCN on a schema'd "
                          "dataset, e.g. mag-hetero)")

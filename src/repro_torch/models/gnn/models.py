@@ -1,7 +1,7 @@
 """GNN models on padded MFG mini-batches, the port of
-``repro/models/gnn/models.py``: GraphSAGE, GAT and RGCN node
-classification with its loss and accuracy. The link-prediction heads wait
-for their ROADMAP item.
+``repro/models/gnn/models.py``: GraphSAGE, GAT and RGCN, the
+node-classification loss and accuracy, and the link-prediction score
+heads (``dot``, ``distmult``) with their loss, ranks and metrics.
 
 Models are functional: ``init_gnn(cfg, generator) -> params`` and
 ``apply_gnn(cfg, params, batch, etype_id) -> logits``, with ``params`` the
@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ...core.sampler.mfg import Fanout, capacities, relation_capacities
+from ...kernels import edge_groups, gather_edges
+from ...kernels.impl import resolve_impl
 from .layers import _dense, gat_layer, rgcn_layer, sage_layer
 
 ARCHS = ("graphsage", "gat", "rgcn")
@@ -202,3 +204,115 @@ def nc_accuracy(logits: torch.Tensor, labels: torch.Tensor,
     m = seed_mask.to(torch.float32)
     return ((pred == labels.long()) * m).sum(-1) / torch.clamp_min(
         m.sum(-1), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# link prediction: score heads, loss, ranks, metrics
+# ---------------------------------------------------------------------------
+
+LP_SCORE_FNS = ("dot", "distmult")
+
+
+def init_lp_head(score_fn: str, num_rels: int, emb_dim: int,
+                 device="cpu") -> dict:
+    """Scoring-head parameters. ``dot`` is parameter-free; ``distmult``
+    owns one diagonal relation embedding per relation, initialized to ones
+    so training starts exactly at the dot-product score."""
+    if score_fn == "dot":
+        return {}
+    if score_fn == "distmult":
+        return {"rel_emb": torch.ones((num_rels, emb_dim),
+                                      dtype=torch.float32, device=device)}
+    raise ValueError(f"unknown score_fn {score_fn!r}; have {LP_SCORE_FNS}")
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor, impl: str) -> torch.Tensor:
+    """``x[idx]`` for an index tensor of any shape -> idx.shape + (F,).
+    The head's indices repeat (in-batch negatives, one relation row for a
+    whole typed batch), so on the card a gradient is summed by K2 over the
+    indices grouped in their order (:func:`gather_edges`), not by the
+    float atomics of ``index_select``'s backward; on the CPU, and without
+    a gradient, ``index_select``."""
+    flat = idx.reshape(-1).to(torch.int32)
+    if (resolve_impl(impl, x) == "cuda" and torch.is_grad_enabled()
+            and x.requires_grad):
+        live = torch.ones_like(flat, dtype=torch.bool)
+        rows = gather_edges(x, flat, live,
+                            edge_groups(flat, live, x.shape[0]))
+    else:
+        rows = x.index_select(0, flat.long())
+    return rows.view(*idx.shape, x.shape[-1])
+
+
+def lp_pair_scores(h: torch.Tensor, u_idx: torch.Tensor, v_idx: torch.Tensor,
+                   head: Optional[dict] = None, score_fn: str = "dot",
+                   etypes: Optional[torch.Tensor] = None,
+                   impl: str = "auto") -> torch.Tensor:
+    """Edge scores from node embeddings: h (N, d); u_idx (B,); v_idx (B,)
+    -> (B,) scores, or (B, K) -> (B, K) (negatives); or all of them with a
+    leading stack axis S (each slot indexes its own rows of h).
+    ``distmult`` scores ``<h_u, diag(r_e), h_v>`` with ``r_e =
+    rel_emb[etypes]``."""
+    if score_fn not in LP_SCORE_FNS:
+        raise ValueError(f"unknown score_fn {score_fn!r}; have "
+                         f"{LP_SCORE_FNS}")
+    stacked = h.dim() == 3
+    if not stacked:
+        h, u_idx, v_idx = h[None], u_idx[None], v_idx[None]
+        etypes = None if etypes is None else etypes[None]
+    s, n, d = h.shape
+    flat = h.reshape(s * n, d)
+    base = torch.arange(s, device=h.device)[:, None] * n        # (S, 1)
+    hu = _rows(flat, u_idx.long() + base, impl)                  # (S, B, d)
+    if score_fn == "distmult":
+        hu = hu * _rows(head["rel_emb"], etypes, impl)
+    vbase = base if v_idx.dim() == 2 else base[:, :, None]
+    hv = _rows(flat, v_idx.long() + vbase, impl)
+    if hv.dim() == hu.dim() + 1:
+        out = (hu[:, :, None, :] * hv).sum(-1)                   # (S, B, K)
+    else:
+        out = (hu * hv).sum(-1)                                  # (S, B)
+    return out if stacked else out[0]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # the reference's log(1 + e^x) = logaddexp(x, 0); F.softplus returns x
+    # past its threshold, with a gradient of exactly 1 there
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def lp_loss_from_scores(pos: torch.Tensor, neg: torch.Tensor,
+                        pair_mask: torch.Tensor) -> torch.Tensor:
+    """BCE over (..., B) positive and (..., B, K) negative scores, masked to
+    live positive slots -> one loss per leading index."""
+    m = pair_mask.to(torch.float32)
+    pos_l = _softplus(-pos) * m
+    neg_l = (_softplus(neg) * m[..., None]).mean(-1)
+    return (pos_l + neg_l).sum(-1) / torch.clamp_min(m.sum(-1), 1.0)
+
+
+def lp_loss(h: torch.Tensor, pos_u: torch.Tensor, pos_v: torch.Tensor,
+            neg_v: torch.Tensor, pair_mask: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """Link-prediction BCE with dot-product scores: h (N, d) output
+    embeddings; pos_u/pos_v (P,) indices into h; neg_v (P, K)."""
+    pos = lp_pair_scores(h, pos_u, pos_v, impl=impl)
+    neg = lp_pair_scores(h, pos_u, neg_v, impl=impl)
+    return lp_loss_from_scores(pos, neg, pair_mask)
+
+
+def lp_ranks(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """Pessimistic rank of each positive among its 1+K candidates: ties
+    count against the positive."""
+    return (1 + (neg >= pos[..., None]).sum(-1)).to(torch.int32)
+
+
+def lp_metrics(ranks: torch.Tensor, pair_mask: torch.Tensor,
+               ks: Sequence[int] = (1, 3, 10)) -> dict:
+    """MRR and Hits@k over live positive slots, one per leading index."""
+    m = pair_mask.to(torch.float32)
+    n = torch.clamp_min(m.sum(-1), 1.0)
+    out = {"mrr": (m / ranks).sum(-1) / n}
+    for k in ks:
+        out[f"hits@{k}"] = ((ranks <= k) * m).sum(-1) / n
+    return out

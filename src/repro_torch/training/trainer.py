@@ -1,19 +1,21 @@
 """Distributed synchronous mini-batch GNN training (§5.1, §5.6), the port of
-``repro/training/trainer.py``'s node-classification branch.
+``repro/training/trainer.py``.
 
 ``DistGNNTrainer`` composes the port's public surface: one
 :class:`~repro_torch.api.DistGraph` world (partition book + KVStore),
-per-trainer :class:`~repro_torch.api.NodeDataLoader` instances over the
-async pipeline, and one *synchronous* AdamW step per iteration across all
-trainers (data parallelism).
+per-trainer :class:`~repro_torch.api.NodeDataLoader` (node classification)
+or :class:`~repro_torch.api.EdgeDataLoader` (link prediction) instances
+over the async pipeline, and one *synchronous* AdamW step per iteration
+across all trainers (data parallelism).
 
 The reference ``vmap``s the loss over the T trainers' stacked batches and
 takes the mean, which is exactly synchronous SGD. The port stacks the T
 batches on the leading axis the layers already take, so each kernel
 launches once per layer for all trainers; it computes one loss per slot,
 averages them, and calls ``backward`` once. Accuracy is the mean of the
-per-slot accuracies, as in the reference. The step runs on the card unless
-the trainer is built with ``device="cpu"``.
+per-slot accuracies, as in the reference (for link prediction: the
+per-slot BCE losses and MRRs). The step runs on the card unless the
+trainer is built with ``device="cpu"``.
 
 The constructor options are the reference's Fig. 14 ablation axes
 (``partition_method``, ``use_level2``, ``sync``, ``non_stop``), and the
@@ -23,8 +25,14 @@ transport, and :meth:`DistGNNTrainer.recover`, which restores a
 checkpoint and replays the rest of the run byte for byte. A config with
 per-relation fanouts (``GNNConfig.typed``, RGCN on a schema'd dataset)
 builds a typed world: per-relation sampling, per-node-type features and
-relation-major blocks. Link prediction is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item.
+relation-major blocks.
+
+Link prediction (``task="link_prediction"``) trains on each trainer's
+owned edges: ``batch_size`` counts positive edges, ``num_negs`` negatives
+a positive (uniform or in-batch, optionally excluding the batch's
+positives), the ``dot`` or ``distmult`` head on the encoder's output
+embeddings, and :meth:`DistGNNTrainer.evaluate_lp` ranks held-out
+candidates (MRR, Hits@k).
 """
 from __future__ import annotations
 
@@ -38,16 +46,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..api.dataloader import NodeDataLoader
+from ..api.dataloader import EdgeDataLoader, NodeDataLoader
 from ..api.dist_graph import DistGraph
 from ..api.inference import resolve_device
 from ..checkpoint import (load_cache, load_kvstore, load_pytree, save_cache,
                           save_kvstore, save_pytree)
 from ..core.kvstore import CacheConfig, FaultInjector, NetworkModel
+from ..core.sampler import EdgeBatchSampler
 from ..graph.datasets import GraphDataset
 from ..kernels.pack import device_stage, stack_trees
-from ..models.gnn import (GNNConfig, apply_gnn, init_gnn, nc_accuracy,
-                          nc_loss, params_to)
+from ..models.gnn import (GNNConfig, apply_gnn, init_gnn, init_lp_head,
+                          lp_loss_from_scores, lp_metrics, lp_pair_scores,
+                          lp_ranks, nc_accuracy, nc_loss, params_to)
 from ..models.gnn.models import _check_arch
 from ..optim import adamw_init, adamw_update
 from ..optim.optimizers import tree_leaves, tree_map
@@ -79,7 +89,18 @@ class TrainJobConfig:
     # None keeps the model config's own choice ("auto": the CUDA kernels
     # on the card, the plain versions on the CPU); "ref" / "cuda" force
     impl: Optional[str] = None
+    # link_prediction: positive-edge batches over each trainer's owned
+    # edges, `num_negs` corrupted dsts per edge, the `score_fn` head (dot |
+    # distmult per relation), MRR/Hits@k eval. For this task the model
+    # config's batch_size is the EDGE batch B; the node batch the samplers
+    # and the model use is derived (2B + B*K, 2B for in-batch negatives).
     task: str = "node_classification"
+    # 16: with few uniform negatives the BCE objective can settle at the
+    # all-scores-zero fixed point (the reference's measurement)
+    num_negs: int = 16
+    score_fn: str = "dot"                # "dot" | "distmult"
+    neg_mode: str = "uniform"            # "uniform" | "in-batch"
+    neg_exclude: bool = False            # re-draw batch-positive collisions
     # consistent checkpoints every `checkpoint_interval` global steps into
     # `checkpoint_dir`; a replacement trainer's recover() restores them
     # and fast-forwards the deterministic schedule to the saved coordinate
@@ -97,10 +118,6 @@ class TrainJobConfig:
     def __post_init__(self):
         if self.task not in TASKS:
             raise ValueError(f"unknown task {self.task!r}; have {TASKS}")
-        if self.task == "link_prediction":
-            raise NotImplementedError(
-                "link prediction is not ported to repro_torch yet: ROADMAP "
-                "queue A item 5")
         if self.checkpoint_interval and not self.checkpoint_dir:
             raise ValueError("checkpoint_interval > 0 needs a checkpoint_dir")
 
@@ -145,11 +162,12 @@ class _Spans:
 
 
 class DistGNNTrainer:
-    """Synchronous data-parallel node classification over T = machines x
-    trainers_per_machine trainers. ``params`` (a tree of tensors, e.g.
-    the reference's initial parameters through
-    :func:`~repro_torch.models.gnn.params_from_numpy`) replaces the
-    seeded :func:`~repro_torch.models.gnn.init_gnn` draw."""
+    """Synchronous data-parallel node classification or link prediction
+    over T = machines x trainers_per_machine trainers. ``params`` (a tree
+    of tensors, e.g. the reference's initial parameters through
+    :func:`~repro_torch.models.gnn.params_from_numpy`; ``{"gnn": ...,
+    "lp": ...}`` for link prediction) replaces the seeded
+    :func:`~repro_torch.models.gnn.init_gnn` draw."""
 
     def __init__(self, ds: GraphDataset, model_cfg: GNNConfig,
                  job: TrainJobConfig, *, device="cuda", params=None):
@@ -161,6 +179,15 @@ class DistGNNTrainer:
         self.cfg = model_cfg
         self.job = job
         self.task = job.task
+        if self.task == "link_prediction":
+            # cfg.batch_size is the EDGE batch; the node samplers and the
+            # model's capacities run at the derived endpoint-seed capacity
+            node_bs = EdgeBatchSampler.required_node_batch(
+                model_cfg.batch_size, job.num_negs, job.neg_mode)
+            self.node_cfg = dataclasses.replace(model_cfg,
+                                                batch_size=node_bs)
+        else:
+            self.node_cfg = model_cfg
 
         # the world: partition + KVStore + typed views, behind one handle
         self.graph = DistGraph(
@@ -186,10 +213,23 @@ class DistGNNTrainer:
         # resolves the typed config's name-keyed fanouts to relation ids
         self.etype_id = self.schema.etype_id if self.hetero else None
 
-        # per-trainer seed split (§5.6.1)
-        self.trainer_seeds = self.graph.node_splits(
-            self.graph.train_nids, use_level2=job.use_level2, seed=job.seed)
-        self.locality = self.graph.locality_report(self.trainer_seeds)
+        # per-trainer seed split (§5.6.1): node tasks split the training
+        # vertices; link prediction splits each machine's OWNED edge range
+        # into equal per-trainer pools ("we may use all edges to train a
+        # model", §6)
+        lp = self.task == "link_prediction"
+        if lp:
+            self.e_src, self.e_dst = self.graph.edge_endpoints()
+            self.trainer_edges: List[np.ndarray] = self.graph.edge_splits()
+            # locality of the positive SOURCES (dsts are local by
+            # construction: edges are owned by their dst's machine)
+            self.locality = self.graph.locality_report(
+                [self.e_src[e] for e in self.trainer_edges])
+        else:
+            self.trainer_seeds = self.graph.node_splits(
+                self.graph.train_nids, use_level2=job.use_level2,
+                seed=job.seed)
+            self.locality = self.graph.locality_report(self.trainer_seeds)
 
         # per-trainer loaders (each owns its sampler, client, cache and
         # async pipeline); the trainer only stacks their batches
@@ -197,33 +237,58 @@ class DistGNNTrainer:
         self.loaders: List[NodeDataLoader] = []
         for ti in range(self.num_trainers):
             gt = self.graph.trainer_view(ti)
-            seeds = self.trainer_seeds[ti]
-            self.loaders.append(NodeDataLoader(
-                gt, seeds, model_cfg.fanouts,
-                batch_size=model_cfg.batch_size,
-                labels=self.labels_new[seeds], sync=job.sync,
-                non_stop=job.non_stop, depths=job.pipeline_depths,
-                device_prefetch=False, cache=gt.feature_cache(job.cache),
-                sample_workers=job.sample_workers,
-                seed=job.seed + 200 + ti, sampler_seed=job.seed + 100 + ti))
+            common = dict(sync=job.sync, non_stop=job.non_stop,
+                          depths=job.pipeline_depths, device_prefetch=False,
+                          cache=gt.feature_cache(job.cache),
+                          sample_workers=job.sample_workers,
+                          seed=job.seed + 200 + ti,
+                          sampler_seed=job.seed + 100 + ti)
+            if lp:
+                self.loaders.append(EdgeDataLoader(
+                    gt, self.trainer_edges[ti], self.node_cfg.fanouts,
+                    batch_size=model_cfg.batch_size, num_negs=job.num_negs,
+                    neg_mode=job.neg_mode, neg_exclude=job.neg_exclude,
+                    edge_seed=job.seed + 300 + ti, **common))
+            else:
+                seeds = self.trainer_seeds[ti]
+                self.loaders.append(NodeDataLoader(
+                    gt, seeds, model_cfg.fanouts,
+                    batch_size=model_cfg.batch_size,
+                    labels=self.labels_new[seeds], **common))
         # component views (stats, tests, benchmarks)
         self.samplers = [ld.sampler for ld in self.loaders]
+        self.edge_samplers = [ld.edge_sampler for ld in self.loaders
+                              if isinstance(ld, EdgeDataLoader)]
         self.pipelines = [ld.pipeline for ld in self.loaders]
         self.caches = [ld.cache for ld in self.loaders]
 
         self.batches_per_epoch = min(len(ld) for ld in self.loaders)
         if self.batches_per_epoch < 1:
             self.stop()
+            if lp:
+                fewest = min(len(e) for e in self.trainer_edges)
+                raise ValueError(
+                    f"edge batch {model_cfg.batch_size} exceeds the "
+                    f"per-trainer owned-edge pool ({fewest} edges/trainer)"
+                    f" — shrink the batch or the trainer count")
             fewest = min(len(s) for s in self.trainer_seeds)
             raise ValueError(
                 f"batch_size {model_cfg.batch_size} exceeds the per-trainer "
                 f"training-set split ({fewest} seeds/trainer) — shrink the "
                 f"batch or the trainer count")
 
-        self.params = (init_gnn(model_cfg,
-                                torch.Generator().manual_seed(job.seed),
-                                device=self.device)
-                       if params is None else params_to(params, self.device))
+        if params is not None:
+            self.params = params_to(params, self.device)
+        else:
+            self.params = init_gnn(self.node_cfg,
+                                   torch.Generator().manual_seed(job.seed),
+                                   device=self.device)
+            if lp:
+                self.params = {"gnn": self.params,
+                               "lp": init_lp_head(job.score_fn,
+                                                  self.node_cfg.num_rels,
+                                                  self.node_cfg.num_classes,
+                                                  device=self.device)}
         self.opt = adamw_init(self.params)
         # optimizer steps taken since construction (or since recover());
         # the checkpoint cadence counts these, not per-epoch batches
@@ -240,34 +305,54 @@ class DistGNNTrainer:
         memory and stage them on the device with ONE packed copy."""
         return device_stage(stack_trees(batches), self.device).unpack()
 
+    def _lp_scores(self, params, batch: dict, cfg: GNNConfig):
+        """Embeddings -> (pos, neg) scores; shared by training and
+        evaluation (which passes its own cfg: its endpoint capacity
+        differs)."""
+        h = apply_gnn(cfg, params["gnn"], batch, etype_id=self.etype_id)
+        kw = dict(head=params["lp"], score_fn=self.job.score_fn,
+                  etypes=batch["edge_etypes"], impl=cfg.impl)
+        pos = lp_pair_scores(h, batch["pos_u"], batch["pos_v"], **kw)
+        neg = lp_pair_scores(h, batch["pos_u"], batch["neg_v"], **kw)
+        return pos, neg
+
     def _forward(self, params, stacked: dict, cfg: GNNConfig):
-        """(mean loss, mean accuracy, the leaf tensors the loss is
+        """(mean loss, mean accuracy or MRR, the leaf tensors the loss is
         differentiated against)."""
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _p: next(it), params)
-        logits = apply_gnn(cfg, live, stacked, etype_id=self.etype_id)
-        losses = nc_loss(logits, stacked["labels"], stacked["seed_mask"])
-        accs = nc_accuracy(logits, stacked["labels"], stacked["seed_mask"])
+        if self.task == "link_prediction":
+            pos, neg = self._lp_scores(live, stacked, cfg)
+            mask = stacked["pair_mask"]
+            losses = lp_loss_from_scores(pos, neg, mask)
+            accs = lp_metrics(lp_ranks(pos, neg), mask)["mrr"]
+        else:
+            logits = apply_gnn(cfg, live, stacked, etype_id=self.etype_id)
+            losses = nc_loss(logits, stacked["labels"], stacked["seed_mask"])
+            accs = nc_accuracy(logits, stacked["labels"],
+                               stacked["seed_mask"])
         return losses.mean(), accs.mean(), leaves
 
     def loss_and_grads(self, stacked: dict, params=None,
                        impl: Optional[str] = None):
-        """The step's loss, accuracy and gradient tree on ``stacked`` (the
-        trainer's own params unless given; ``impl`` overrides the model
-        config's kernel choice), without updating anything."""
+        """The step's loss, accuracy (MRR for link prediction) and gradient
+        tree on ``stacked`` (the trainer's own params unless given;
+        ``impl`` overrides the model config's kernel choice), without
+        updating anything."""
         params = self.params if params is None else params
-        cfg = (self.cfg if impl is None
-               else dataclasses.replace(self.cfg, impl=impl))
+        cfg = (self.node_cfg if impl is None
+               else dataclasses.replace(self.node_cfg, impl=impl))
         loss, acc, leaves = self._forward(params, stacked, cfg)
         grads = iter(torch.autograd.grad(loss, leaves))
         return loss.detach(), acc, tree_map(lambda _p: next(grads), params)
 
     def train_step(self, stacked: dict):
-        """One synchronous AdamW step on the stacked batch -> (loss, acc)
-        as tensors on the device."""
+        """One synchronous AdamW step on the stacked batch -> (loss, acc or
+        MRR) as tensors on the device."""
         spans = self.spans
-        loss, acc, leaves = self._forward(self.params, stacked, self.cfg)
+        loss, acc, leaves = self._forward(self.params, stacked,
+                                          self.node_cfg)
         spans.mark("forward", device=True)
         grads = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _p: next(grads), self.params)
@@ -317,9 +402,12 @@ class DistGNNTrainer:
             losses.append(float(loss))
             accs.append(float(acc))
             spans.mark("read_loss")
-        # drain every iterator to ITS epoch boundary (with equal
+        # drain every iterator to ITS epoch boundary. With equal
         # per-trainer batch counts this pulls nothing in non-stop mode and
-        # just exhausts finite pipelines)
+        # just exhausts finite pipelines; on the typed link-prediction path
+        # per-relation tail dropping can leave a trainer a few surplus
+        # batches, and abandoning those mid-epoch would serve the next
+        # epoch stale batches
         for it in iters:
             for _ in it:
                 pass
@@ -327,9 +415,67 @@ class DistGNNTrainer:
             torch.cuda.synchronize(self.device)
         spans.resolve()
         dt = time.perf_counter() - t0
-        return {"epoch": epoch, "loss": float(np.mean(losses)),
-                "acc": float(np.mean(accs)), "time_s": dt,
-                "batches": self.batches_per_epoch - start, "losses": losses}
+        out = {"epoch": epoch, "loss": float(np.mean(losses)),
+               "acc": float(np.mean(accs)), "time_s": dt,
+               "batches": self.batches_per_epoch - start, "losses": losses}
+        if self.task == "link_prediction":
+            out["train_mrr"] = out["acc"]   # the step's aux metric is MRR
+        return out
+
+    @torch.no_grad()
+    def lp_eval_batches(self, num_batches: int = 20, seed: int = 977,
+                        num_negs: Optional[int] = None,
+                        batch_edges: Optional[int] = None):
+        """The evaluation batches of :meth:`evaluate_lp`, each staged and
+        scored: yields (:class:`~repro_torch.api.EdgeBatch`, pos (B,),
+        neg (B, K)) with the scores on the trainer's device."""
+        if self.task != "link_prediction":
+            raise ValueError("evaluate_lp needs a link-prediction trainer "
+                             f"(task={self.task!r})")
+        b = batch_edges or min(self.cfg.batch_size, 16)
+        k = num_negs or 49
+        eval_cfg = dataclasses.replace(
+            self.node_cfg,
+            batch_size=EdgeBatchSampler.required_node_batch(b, k, "uniform"))
+        g0 = self.graph.trainer_view(0)
+        loader = EdgeDataLoader(
+            g0, np.arange(g0.num_edges(), dtype=np.int64), eval_cfg.fanouts,
+            batch_size=b, num_negs=k, neg_mode="uniform", neg_exclude=False,
+            mode="eval", sampler_seed=self.job.seed + 998,
+            edge_seed=self.job.seed + seed)
+        with loader:
+            for batch in itertools.islice(loader, num_batches):
+                staged = device_stage(batch.model_input(),
+                                      self.device).unpack()
+                pos, neg = self._lp_scores(self.params, staged, eval_cfg)
+                yield batch, pos, neg
+
+    def evaluate_lp(self, num_batches: int = 20, seed: int = 977,
+                    num_negs: Optional[int] = None,
+                    batch_edges: Optional[int] = None) -> dict:
+        """MRR / Hits@k over a deterministic sample of the graph's edges,
+        always against fresh uniform negatives (rank the true destination
+        against corrupted ones), whatever the training ``neg_mode``.
+
+        Evaluation uses its own candidate count (``num_negs`` defaults to
+        49, so ranks span [1, 50] and Hits@10 is a real metric), batch
+        (``batch_edges`` defaults to min(batch, 16)) and endpoint capacity;
+        exclusion is off. The protocol is an ``EdgeDataLoader(mode="eval")``
+        over every edge on trainer view 0 with its own sampler (the
+        trainers' samplers are owned by their pipeline threads)."""
+        ranks: List[np.ndarray] = []
+        for batch, pos, neg in self.lp_eval_batches(num_batches, seed,
+                                                    num_negs, batch_edges):
+            r = lp_ranks(pos, neg).cpu().numpy()
+            ranks.append(r[batch.pair_mask])
+        if not ranks:   # fewer edges than one batch: degenerate eval
+            return {"mrr": float("nan"), "num_edges": 0,
+                    **{f"hits@{k}": float("nan") for k in (1, 3, 10)}}
+        r = np.concatenate(ranks).astype(np.float64)
+        out = {"mrr": float((1.0 / r).mean()), "num_edges": int(len(r))}
+        for k in (1, 3, 10):
+            out[f"hits@{k}"] = float((r <= k).mean())
+        return out
 
     @torch.no_grad()
     def evaluate(self, nids_old: np.ndarray, max_batches: int = 50) -> float:
@@ -384,12 +530,12 @@ class DistGNNTrainer:
         """Restore a :meth:`save_checkpoint` into THIS trainer and arm the
         deterministic fast-forward: the next ``train_epoch()`` must target
         the saved epoch and resumes at the saved batch, after which every
-        remaining batch — schedules and neighbor draws — is byte-identical
-        to the uninterrupted run's (the counter-based RNG keys every draw
-        by (seed, epoch, batch, stream), DESIGN.md §7). The world must
-        match the checkpoint (same seed/task/trainer count/batch count) —
-        anything else cannot replay byte-exactly and raises. Returns the
-        checkpoint's coordinate metadata."""
+        remaining batch — schedules, neighbor draws and negatives — is
+        byte-identical to the uninterrupted run's (the counter-based RNG
+        keys every draw by (seed, epoch, batch, stream), DESIGN.md §7).
+        The world must match the checkpoint (same seed/task/trainer
+        count/batch count) — anything else cannot replay byte-exactly and
+        raises. Returns the checkpoint's coordinate metadata."""
         with open(os.path.join(directory, "state.json")) as f:
             state = json.load(f)
         mine = {"seed": int(self.job.seed), "task": self.task,

@@ -365,7 +365,7 @@ def test_train_cli_runs_on_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--task", "link_prediction"], "item 5"),
+    (["--arch", "qwen2-0.5b"], "item 10"),
 ])
 def test_unported_options_raise_and_name_their_roadmap_item(argv, item):
     args = train_cli.build_parser().parse_args(
@@ -414,12 +414,15 @@ def test_typed_options_refuse_what_the_reference_refuses(argv, message):
         train_cli.build_trainer(args)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("task", "link_prediction", "item 5"),
+@pytest.mark.parametrize("fields", [
+    dict(task="link_prediction", score_fn="distmult", neg_mode="in-batch"),
 ])
-def test_job_config_refuses_unported_fields(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
-        TrainJobConfig(**{field: value})
+def test_job_config_builds_link_prediction_fields(fields):
+    """Link prediction is ported (ROADMAP queue A item 5): the job takes
+    the task and its fields and keeps them."""
+    job = TrainJobConfig(**fields)
+    assert {k: getattr(job, k) for k in fields} == fields
+    assert job.num_negs == 16 and job.neg_exclude is False
 
 
 @pytest.mark.parametrize("argv", [
