@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about six minutes
+    python3 chip_smoke.py            # one card; about ten minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -152,18 +152,42 @@ Phases, each of which exits non-zero when it fails:
                ``lp_batch``, the same kernels on one first-step batch of
                ``train_lp``'s command on scale 14, where the ego-networks
                do not cover the graph (scale 7's are mostly padding);
+               ``train_lp_gat``, the same command with GAT + dot (2
+               heads; K3, its backward and K4 launch, K2 sums the logits'
+               and the head's gradients), the same checks;
                ``recover_lp``,
                ``train_lp`` on scale 6 for 2 epochs killed at (1, 2) as
                phase 8; ``lp_heads``, the score head alone at
                ``train_lp``'s shapes for {dot, distmult} x {uniform,
                in-batch}, twice, bitwise equal between runs and within
                rtol 1e-4, atol 1e-5 of the CPU plain path.
-12. report  -- a JSON line of every ported kernel (its times summed over
+12. offline  -- the layer-wise pass, ``gnn_serve --offline``:
+               ``offline_graphsage`` and ``offline_gat`` at the paper's
+               widths on product-sim scale 12 (4,096 nodes, in-degrees up
+               to 1,164) in chunks of 64, ``offline_rgcn`` typed at hidden
+               1024 on mag-hetero scale 10 (2,580 nodes, in-degrees up to
+               2,051) in chunks of 16; each counted (launches by layer),
+               with its spans (sampling, pulls, staging, forward and the
+               card's share of it, pushes) and peak device memory; every
+               layer's rows finite; 16 nodes, the longest group's among
+               them, bitwise the full-neighbour mini-batch forward of each
+               layer at the same chunk size and within rtol 1e-4, atol
+               1e-5 of it with ``impl="ref"``; GraphSAGE's bytes equal at
+               chunks of 64, 16 and 7; one more pass under
+               ``torch.profiler`` (the card's busy share, the operators
+               that take the most time); and the pass's kernels (K1 and K2,
+               or K4's statistics and K3's forward) on each layer's chunk
+               that holds the longest group, as phase 4; first, at each
+               product shape of the runs, whether one ``torch.bmm``
+               changes a row's bits with the number of rows (logged) and
+               that the pass's row tiles do not (required).
+13. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
-               RGCN tick's and step's and the link-prediction steps' sums
-               beside; K5 at table scale, K6
+               RGCN tick's and step's, the link-prediction steps' and
+               the offline passes' longest chunks' sums beside; K5 at
+               table scale, K6
                at its float32 shape), the ``nvidia-smi`` line, and last
                ``{"ok": true, "device": {...}}``.
 
@@ -224,7 +248,8 @@ KERNELS = {
         source=CSRC + "fused_gather_aggregate.cu", replaces=K1,
         paths=("serving", "train_graphsage", "train_recover",
                "serving_rgcn", "train_rgcn", "recover_rgcn", "train_lp",
-               "train_lp_rgcn", "recover_lp")),
+               "train_lp_rgcn", "recover_lp", "offline_graphsage",
+               "offline_rgcn")),
     # K2 as `_degrees` (F = 1), as the GAT step's logit gradients (F = 2,
     # keyed by source and by destination), and as the gradients of the
     # link-prediction head's gathers (F = the embedding width)
@@ -232,31 +257,32 @@ KERNELS = {
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("serving", "train_graphsage", "train_recover",
                             "serving_rgcn", "train_rgcn", "recover_rgcn",
-                            "train_lp", "train_lp_rgcn", "recover_lp")),
+                            "train_lp", "train_lp_rgcn", "recover_lp",
+                            "offline_graphsage", "offline_rgcn")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
-        replaces=K2, paths=("train_gat",)),
+        replaces=K2, paths=("train_gat", "train_lp_gat")),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
         paths=("train_graphsage", "train_recover", "train_rgcn",
                "recover_rgcn", "train_lp", "train_lp_rgcn", "recover_lp")),
     "edge_softmax_stats": dict(
         wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
-        replaces=K4, paths=("train_gat",)),
+        replaces=K4, paths=("train_gat", "train_lp_gat", "offline_gat")),
     "edge_softmax_norm": dict(
         wrapper="edge_softmax_norm", source=CSRC + "edge_softmax.cu",
-        replaces=K4, paths=("train_gat",)),
+        replaces=K4, paths=("train_gat", "train_lp_gat")),
     "fused_edge_softmax_aggregate": dict(
         wrapper="fused_edge_softmax_aggregate",
         source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
-        paths=("train_gat",)),
+        paths=("train_gat", "train_lp_gat", "offline_gat")),
     "fused_edge_softmax_aggregate_bwd": dict(
         wrapper="fused_edge_softmax_aggregate_bwd",
         source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
-        paths=("train_gat",)),
+        paths=("train_gat", "train_lp_gat")),
     "fused_edge_softmax_aggregate_bwd_h": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K3,
-        paths=("train_gat",)),
+        paths=("train_gat", "train_lp_gat")),
     "sparse_adam": dict(
         wrapper="sparse_adam", source=CSRC + "sparse_adam.cu",
         replaces="src/repro/kernels/sparse_adam/kernel.py:72",
@@ -287,6 +313,15 @@ LP_RGCN_TRAIN = ["--arch", "rgcn", "--dataset", "mag-hetero", "--hetero",
                  "--task", "link_prediction", "--score-fn", "distmult",
                  "--neg-exclude", "--scale", "5", "--batch-size", "8",
                  "--num-negs", "2"]
+LP_GAT_TRAIN = ["--arch", "gat"] + LP_TRAIN[2:] + ["--scale", "7"]
+# the offline layer-wise pass: GraphSAGE and GAT on product-sim scale 12
+# (4,096 nodes, max in-degree 1,164: 74,560 source rows a chunk of 64),
+# GraphSAGE's bytes held across three chunk sizes; typed RGCN at hidden
+# 1024 on mag-hetero scale 10 (2,580 nodes, in-degrees up to 2,051 /
+# 9 / 752 / 1 by relation: 45,024 source rows a chunk of 16)
+OFFLINE_SCALE, OFFLINE_CHUNKS = 12, (64, 16, 7)
+RGCN_OFFLINE_SCALE, RGCN_OFFLINE_CHUNK = 10, 16
+OFFLINE_CHECK_NODES = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -700,9 +735,10 @@ def _plain_stats(torch, scores, ed, em, n):
     return m, torch.zeros_like(m).index_add_(0, ed.long(), ex)
 
 
-def gat_cases(torch, tag, batch, caps, params) -> dict:
-    """K4 (statistics, normalize), K3's forward and K3's backward (into the
-    scores, and into h_proj through the source-keyed kernel) on every GAT
+def gat_cases(torch, tag, batch, caps, params, backward=True) -> dict:
+    """K4 (statistics, normalize), K3's forward and, with ``backward``,
+    K3's backward (into the scores, and into h_proj through the
+    source-keyed kernel) and K2 as the logits' gradients on every GAT
     layer of one staged batch, each layer's input from the plain forward.
     The backward is held against ``torch.autograd.grad`` through the plain
     version."""
@@ -843,76 +879,77 @@ def gat_cases(torch, tag, batch, caps, params) -> dict:
                  bound(fwd_bytes, e_live * (2 * f + 3 * heads)),
                  max_err(torch, out1, plain_out))
 
-        # K3's backward, through autograd against autograd through the
-        # plain version, then each kernel alone
-        hp_g = hp.detach().requires_grad_()
-        sc_g = scores.detach().requires_grad_()
-        got = torch.autograd.grad(fused_edge_softmax_aggregate(
-            hp_g, sc_g, es, ed, em, n, impl="cuda", groups=by_dst,
-            by_src=by_src), (hp_g, sc_g), grad_out)
-        with stable_order(torch):
-            plain_graph = fused_edge_softmax_aggregate_ref(hp_g, sc_g, es,
-                                                           ed, em, n)
-            want = torch.autograd.grad(plain_graph, (hp_g, sc_g), grad_out,
-                                       retain_graph=True)
-        ds1 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
-                                                    es, by_dst)
-        ds2 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
-                                                    es, by_dst)
-        dh1 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
-        dh2 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
-        torch.cuda.synchronize()
-        require(torch.equal(ds1, ds2) and torch.equal(dh1, dh2)
-                and torch.equal(ds1, got[1])
-                and torch.equal(dh1.view_as(hp), got[0]),
-                f"K3 backward {label}: two runs differ")
-        check_close(torch, got[1], want[1], 1e-5, 1e-5,
-                    f"K3 backward d scores {label}")
-        check_close(torch, got[0], want[0], 1e-5, 1e-5,
-                    f"K3 backward d h_proj {label}")
-        check_close(torch, torch.sparse.mm(
-            att_t, grad_out.view(n * heads, d_h)).view_as(hp), want[0],
-                    1e-5, 1e-5, f"K3 backward d h_proj {label} library "
-                                "yardstick")
-        bwd_bytes = (idx_bytes + e_live * heads * 4 + 2 * n_dst_live * f * 4
-                     + n_src_rows * f * 4 + e * heads * 4)
-        add_case(results["fused_edge_softmax_aggregate_bwd"],
-                 f"K3 backward d scores {label}",
-                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
-                 cuda_ms(torch, lambda: fused_edge_softmax_aggregate_bwd_cuda(
-                     grad_out, hp, out1, a1, es, by_dst)),
-                 cuda_ms(torch, lambda: torch.autograd.grad(
-                     plain_graph, sc_g, grad_out, retain_graph=True)),
-                 None, bound(bwd_bytes, 2 * f * (e_live + n_dst_live)),
-                 max_err(torch, got[1], want[1]))
-        bwd_h_bytes = (idx_bytes + e_live * heads * 4 + n_dst_live * f * 4
-                       + v * f * 4)
-        add_case(results["fused_edge_softmax_aggregate_bwd_h"],
-                 f"K3 backward d h_proj {label}",
-                 dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n,
-                      max_src_degree=max_degree(torch, es[live])),
-                 cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed, by_src,
-                                                         weights=a1)),
-                 cuda_ms(torch, lambda: torch.autograd.grad(
-                     plain_graph, hp_g, grad_out, retain_graph=True)),
-                 cuda_ms(torch, lambda: torch.sparse.mm(
-                     att_t, grad_out.view(n * heads, d_h))),
-                 bound(bwd_h_bytes, 2 * f * e_live),
-                 max_err(torch, got[0], want[0]))
-        del plain_graph, want, got, hp_g, sc_g, att, att_t
+        if backward:
+            # K3's backward, through autograd against autograd through the
+            # plain version, then each kernel alone
+            hp_g = hp.detach().requires_grad_()
+            sc_g = scores.detach().requires_grad_()
+            got = torch.autograd.grad(fused_edge_softmax_aggregate(
+                hp_g, sc_g, es, ed, em, n, impl="cuda", groups=by_dst,
+                by_src=by_src), (hp_g, sc_g), grad_out)
+            with stable_order(torch):
+                plain_graph = fused_edge_softmax_aggregate_ref(hp_g, sc_g, es,
+                                                               ed, em, n)
+                want = torch.autograd.grad(plain_graph, (hp_g, sc_g), grad_out,
+                                           retain_graph=True)
+            ds1 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
+                                                        es, by_dst)
+            ds2 = fused_edge_softmax_aggregate_bwd_cuda(grad_out, hp, out1, a1,
+                                                        es, by_dst)
+            dh1 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
+            dh2 = src_scatter_cuda(grad_out, ed, by_src, weights=a1)
+            torch.cuda.synchronize()
+            require(torch.equal(ds1, ds2) and torch.equal(dh1, dh2)
+                    and torch.equal(ds1, got[1])
+                    and torch.equal(dh1.view_as(hp), got[0]),
+                    f"K3 backward {label}: two runs differ")
+            check_close(torch, got[1], want[1], 1e-5, 1e-5,
+                        f"K3 backward d scores {label}")
+            check_close(torch, got[0], want[0], 1e-5, 1e-5,
+                        f"K3 backward d h_proj {label}")
+            check_close(torch, torch.sparse.mm(
+                att_t, grad_out.view(n * heads, d_h)).view_as(hp), want[0],
+                        1e-5, 1e-5, f"K3 backward d h_proj {label} library "
+                                    "yardstick")
+            bwd_bytes = (idx_bytes + e_live * heads * 4 + 2 * n_dst_live * f * 4
+                         + n_src_rows * f * 4 + e * heads * 4)
+            add_case(results["fused_edge_softmax_aggregate_bwd"],
+                     f"K3 backward d scores {label}",
+                     dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n),
+                     cuda_ms(torch, lambda: fused_edge_softmax_aggregate_bwd_cuda(
+                         grad_out, hp, out1, a1, es, by_dst)),
+                     cuda_ms(torch, lambda: torch.autograd.grad(
+                         plain_graph, sc_g, grad_out, retain_graph=True)),
+                     None, bound(bwd_bytes, 2 * f * (e_live + n_dst_live)),
+                     max_err(torch, got[1], want[1]))
+            bwd_h_bytes = (idx_bytes + e_live * heads * 4 + n_dst_live * f * 4
+                           + v * f * 4)
+            add_case(results["fused_edge_softmax_aggregate_bwd_h"],
+                     f"K3 backward d h_proj {label}",
+                     dict(V=v, H=heads, Dh=d_h, E=e, E_live=e_live, num_dst=n,
+                          max_src_degree=max_degree(torch, es[live])),
+                     cuda_ms(torch, lambda: src_scatter_cuda(grad_out, ed, by_src,
+                                                             weights=a1)),
+                     cuda_ms(torch, lambda: torch.autograd.grad(
+                         plain_graph, hp_g, grad_out, retain_graph=True)),
+                     cuda_ms(torch, lambda: torch.sparse.mm(
+                         att_t, grad_out.view(n * heads, d_h))),
+                     bound(bwd_h_bytes, 2 * f * e_live),
+                     max_err(torch, got[0], want[0]))
+            del plain_graph, want, got, hp_g, sc_g, att, att_t
 
-        # K2 as the GAT step runs it, in gather_edges' backward: the
-        # gradients (E, H) of the source and the destination logits summed
-        # by source row (groups of up to hundreds of edges) and by
-        # destination
-        msg = torch.randn((e, heads), generator=gen, device="cuda")
-        for key, keys, groups, num in (("source", es, by_src, v),
-                                       ("destination", ed, by_dst, n)):
-            k2_case(torch, f"GAT logit gradient by {key} {label} (largest "
-                           f"group {max_degree(torch, keys[live])})", msg,
-                    {"edge_dst": keys, "edge_mask": em}, num, groups,
-                    results["segment_sum_gat"], 1e-5, 1e-5)
-        del msg
+            # K2 as the GAT step runs it, in gather_edges' backward: the
+            # gradients (E, H) of the source and the destination logits summed
+            # by source row (groups of up to hundreds of edges) and by
+            # destination
+            msg = torch.randn((e, heads), generator=gen, device="cuda")
+            for key, keys, groups, num in (("source", es, by_src, v),
+                                           ("destination", ed, by_dst, n)):
+                k2_case(torch, f"GAT logit gradient by {key} {label} (largest "
+                               f"group {max_degree(torch, keys[live])})", msg,
+                        {"edge_dst": keys, "edge_mask": em}, num, groups,
+                        results["segment_sum_gat"], 1e-5, 1e-5)
+            del msg
         with torch.no_grad():
             h = gat_layer(p, h, block, caps[layer],
                           activation=None if layer == last else F.elu,
@@ -1655,7 +1692,8 @@ def phase_training(torch, path: str, argv: list) -> tuple:
         cases = layer_cases(torch, tag, first, cfg.dst_caps(), gnn0,
                             backward=True)
     if lp:
-        cases["segment_sum"] = cases["segment_sum"] + lp_head_cases(
+        key = "segment_sum_gat" if cfg.arch == "gat" else "segment_sum"
+        cases[key] = cases[key] + lp_head_cases(
             torch, tag, first, cfg.num_classes, tr.job.score_fn,
             cfg.num_rels)
     del tr, tr2, first, grads, ref_grads
@@ -1667,8 +1705,6 @@ def profile_step(torch, path: str, tr, stacked) -> None:
     """One more training step on ``stacked`` under ``torch.profiler``: the
     card's busy time (kernels and copies) against the step's wall time,
     and the operators that take the most host and device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import CUDA_WRAPPERS
 
     for w in CUDA_WRAPPERS.values():
@@ -1677,13 +1713,23 @@ def profile_step(torch, path: str, tr, stacked) -> None:
     torch.cuda.synchronize()
     log(f"[profile] {path}: launches in one step: " + json.dumps(
         {n: w.launches for n, w in CUDA_WRAPPERS.items() if w.launches}))
+    profiled(torch, path, "one step (stacked batch already staged)",
+             lambda: tr.train_step(stacked))
+
+
+def profiled(torch, path: str, what: str, fn) -> None:
+    """``fn`` under ``torch.profiler``: the card's busy time (kernels and
+    copies) against the wall time, and the operators that take the most
+    host and device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.train_step(stacked)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
 
     def on_card(e):
         return e.device_type == DeviceType.CUDA
@@ -1695,9 +1741,8 @@ def profile_step(torch, path: str, tr, stacked) -> None:
     # kernels and copies run on one stream, so their times add up
     busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                   if on_card(e)) / 1e3
-    log(f"[profile] {path}: one step (stacked batch already staged) "
-        f"{wall_ms:.3f} ms wall, the card busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%; idle "
+    log(f"[profile] {path}: {what} {wall_ms:.3f} ms wall, the card busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; idle "
         f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
     events = prof.key_averages()
     top_dev = sorted((e for e in events if on_card(e)), key=dev_ms,
@@ -2251,11 +2296,12 @@ def phase_lp_batch(torch) -> dict:
 
 
 def phase_link_prediction(torch, launches: dict, extra: dict) -> None:
-    """The link-prediction main paths (GraphSAGE + dot, typed RGCN +
-    distmult, recovery) and the score head alone, each timed; their launch
-    counts go to ``launches`` and their steps' kernel cases to
+    """The link-prediction main paths (GraphSAGE + dot, GAT + dot, typed
+    RGCN + distmult, recovery) and the score head alone, each timed; their
+    launch counts go to ``launches`` and their steps' kernel cases to
     ``extra``."""
     for path, argv in (("train_lp", LP_TRAIN + ["--scale", "7"]),
+                       ("train_lp_gat", LP_GAT_TRAIN),
                        ("train_lp_rgcn", LP_RGCN_TRAIN)):
         t0 = time.perf_counter()
         launches[path], extra[f"{path}_step"] = phase_training(
@@ -2271,6 +2317,272 @@ def phase_link_prediction(torch, launches: dict, extra: dict) -> None:
     t0 = time.perf_counter()
     phase_lp_heads(torch)
     log(f"[lp_heads] phase {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the offline layer-wise pass
+# ---------------------------------------------------------------------------
+
+def longest_group_node(g) -> tuple:
+    """(node, relation, in-degree) of the longest full-neighbour group in
+    ``g``: the node (in the partition's id space) with the most in-edges
+    of one relation (relation 0 on an untyped graph)."""
+    csr = g.ds.graph
+    r = csr.num_etypes if g.hetero else 1
+    keys = csr.indices * r + (csr.etypes if g.hetero else 0)
+    deg = np.bincount(keys, minlength=csr.num_nodes * r)
+    old, rel = divmod(int(deg.argmax()), r)
+    return int(g.to_new_nids(np.array([old]))[0]), rel, int(deg.max())
+
+
+def offline_chunk(torch, g, cfg, params, layer, nids, chunk, impl="auto"):
+    """Layer ``layer`` of the pass recomputed for ``nids`` (at most
+    ``chunk``) as one full-neighbour mini-batch of capacity ``chunk``:
+    sampled, its inputs pulled (the features, or the pass's own previous
+    tensor), staged and run as ``offline_embeddings`` runs a chunk. The
+    mini-batch oracle of ``tests/test_inference.py``, one layer at a time:
+    a full-neighbour forward through all layers at once would pad to
+    chunk x (1 + D) ^ L source rows. Returns (the nids' rows on the host,
+    the staged batch as the kernel cases take it, the layer's fanout)."""
+    from repro_torch.api.inference import OFFLINE_ROW_TILE
+    from repro_torch.core.pipeline.minibatch import host_blocks
+    from repro_torch.core.sampler import (DistributedSampler,
+                                          full_neighbor_fanouts,
+                                          pull_batch_feats,
+                                          sample_ego_networks)
+    from repro_torch.kernels.pack import device_stage
+    from repro_torch.models.gnn import apply_gnn_layer, apply_head
+
+    schema = g.schema if g.hetero else None
+    fanout = full_neighbor_fanouts(g.partitions, cfg.num_layers,
+                                   schema=schema)[layer]
+    sampler = DistributedSampler(
+        g.book, g.partitions, [fanout], chunk, machine=g.machine,
+        transport=None, seed=0, schema=schema,
+        ntype_of_node=g.typed.ntype_of_node if g.hetero else None)
+    client = g.new_client()
+    mb = next(sample_ego_networks(sampler, client, g.feat_name,
+                                  np.asarray(nids, dtype=np.int64),
+                                  drop_last=False, pull_feats=False))
+    if layer == 0:
+        h = pull_batch_feats(client, g.feat_name, mb,
+                             typed=g.typed if g.hetero else None)
+    else:
+        h = client.pull(f"emb{layer - 1}", mb.input_gids)
+    staged = device_stage({"input_feats": h, "blocks": host_blocks(mb)},
+                          DEVICE).unpack()
+    rel = sampler.rel_caps[0]
+    rel = None if rel is None else tuple(int(x) for x in rel)
+    c = dataclasses.replace(cfg, impl=impl)
+    with torch.inference_mode():
+        out = apply_gnn_layer(c, params, layer, staged["input_feats"],
+                              staged["blocks"][0], chunk, rel_offsets=rel,
+                              row_tile=OFFLINE_ROW_TILE)
+        if layer == cfg.num_layers - 1:
+            out = apply_head(params, out, OFFLINE_ROW_TILE)
+    return out[:len(nids)].cpu().numpy(), staged, fanout
+
+
+def offline_kernel_cases(torch, path, g, cfg, params, staged, fanout,
+                         layer, chunk) -> dict:
+    """The pass's kernels on one staged chunk of one layer, as the
+    training phases time them: K1 and K2 as ``_degrees`` (GraphSAGE; RGCN
+    for each relation), K4's statistics and K3's forward (GAT). Only the
+    cases of kernels that ``path`` launches are kept."""
+    one = {"layers": [params["layers"][layer]]}
+    tag = f"{path} pass layer {layer}:"
+    if cfg.arch == "gat":
+        cases = gat_cases(torch, tag, staged, [chunk], one, backward=False)
+    elif cfg.arch == "rgcn":
+        one_cfg = dataclasses.replace(cfg, fanouts=[fanout],
+                                      batch_size=chunk)
+        cases = rgcn_cases(torch, tag, staged, one_cfg, one,
+                           g.schema.etype_id if g.hetero else None)
+    else:
+        cases = layer_cases(torch, tag, staged, [chunk], one)
+    return {n: c for n, c in cases.items() if path in KERNELS[n]["paths"]}
+
+
+def phase_offline_run(torch, path: str, argv: list, chunks: tuple) -> tuple:
+    """One offline main path: ``gnn_serve --offline`` with ``argv`` at
+    ``chunks[0]`` nodes a chunk, counted (each layer's launches logged),
+    its spans and peak device memory; every layer's rows finite; 16 nodes
+    (the longest group's among them) bitwise the full-neighbour mini-batch
+    forward of each layer and within rtol 1e-4, atol 1e-5 of it with
+    ``impl="ref"``; the pass's bytes equal at every other chunk size of
+    ``chunks``; the kernels on each layer's chunk that holds the longest
+    group. Returns (launch counts, kernel cases by layer)."""
+    import functools
+
+    import repro_torch.api as api
+    from repro_torch.api import inference
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.launch import gnn_serve
+
+    chunk = chunks[0]
+    args = gnn_serve.build_parser().parse_args(
+        argv + ["--offline", "--chunk-size", str(chunk), "--device",
+                DEVICE])
+    t0 = time.perf_counter()
+    world = gnn_serve.build_world(args)
+    g, cfg, params = world
+    node, rel_of_node, degree = longest_group_node(g)
+    log(f"[{path}] {args.dataset} scale {args.scale}: {g.num_nodes()} "
+        f"nodes, {g.num_edges()} edges (world built in "
+        f"{time.perf_counter() - t0:.2f} s); {cfg.arch} in {cfg.in_dim}, "
+        f"hidden {cfg.hidden_dim}, {cfg.num_classes} classes, "
+        f"{cfg.num_layers} layers; the longest group: node {node}, "
+        f"relation {rel_of_node}, {degree} in-edges")
+
+    spans, by_layer = {}, []
+    layer_fn = inference.apply_gnn_layer
+
+    def layer_counted(cfg_, params_, layer, *a, **kw):
+        before = {n: w.launches for n, w in CUDA_WRAPPERS.items()}
+        out = layer_fn(cfg_, params_, layer, *a, **kw)
+        while len(by_layer) <= layer:
+            by_layer.append(dict.fromkeys(CUDA_WRAPPERS, 0))
+        for n, w in CUDA_WRAPPERS.items():
+            by_layer[layer][n] += w.launches - before[n]
+        return out
+
+    pass_fn = api.offline_embeddings
+    api.offline_embeddings = functools.partial(pass_fn, spans=spans)
+    inference.apply_gnn_layer = layer_counted
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        summary, launches = counted(
+            path, lambda: gnn_serve.run_offline(args, world=world))
+    finally:
+        api.offline_embeddings = pass_fn
+        inference.apply_gnn_layer = layer_fn
+    peak = torch.cuda.max_memory_allocated()
+    for layer, counts in enumerate(by_layer):
+        log(f"[{path}] layer {layer} launches: " + json.dumps(
+            {n: c for n, c in counts.items() if c}))
+    host = {k: v for k, v in spans.items() if k != "device_forward"}
+    total = sum(host.values())
+    log(f"[{path}] {summary['num_nodes']} nodes x {cfg.num_layers} layers "
+        f"in chunks of {chunk}: wall {summary['wall_s']} s, "
+        f"{summary['nodes_per_s']} node-layers/s; spans (host clock) "
+        + ", ".join(f"{k} {v:.3f} s ({100 * v / total:.1f}%)"
+                    for k, v in host.items())
+        + f"; of forward, on the card (CUDA events) "
+        f"{spans['device_forward']:.3f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB ({peak} bytes)")
+    all_nids = np.arange(g.num_nodes(), dtype=np.int64)
+    rows = [np.ascontiguousarray(g.ndata[f"emb{l}"][all_nids])
+            for l in range(cfg.num_layers)]
+    require(summary["layers"] == [list(r.shape) for r in rows]
+            and rows[-1].shape == (g.num_nodes(), cfg.num_classes)
+            and all(bool(np.isfinite(r).all()) for r in rows),
+            f"{path}: layer shapes {summary['layers']} or values not finite")
+
+    rng = np.random.default_rng(6)
+    others = rng.choice(np.delete(all_nids, node),
+                        min(chunk, OFFLINE_CHECK_NODES) - 1, replace=False)
+    check = np.concatenate([[node], others])
+    errs = []
+    for layer in range(cfg.num_layers):
+        got, *_ = offline_chunk(torch, g, cfg, params, layer, check, chunk)
+        want, *_ = offline_chunk(torch, g, cfg, params, layer, check, chunk,
+                                 impl="ref")
+        require(got.tobytes() == rows[layer][check].tobytes(),
+                f"{path} layer {layer}: the pass's rows of {len(check)} "
+                f"nodes are not bitwise their full-neighbour mini-batch "
+                f"forward's")
+        check_close(torch, torch.from_numpy(got), torch.from_numpy(want),
+                    1e-4, 1e-5, f"{path} layer {layer} against impl='ref'")
+        errs.append(float(np.abs(got - want).max()))
+    log(f"[{path}] {len(check)} nodes (the longest group's among them) "
+        f"bitwise their full-neighbour mini-batch forward at every layer; "
+        f"against impl='ref' max abs err by layer {errs}")
+
+    profiled(torch, path, f"the pass once more at chunks of {chunk}",
+             lambda: api.offline_embeddings(g, cfg, params, chunk_size=chunk,
+                                            prefix="emb_prof_",
+                                            device=DEVICE))
+    for other in chunks[1:]:
+        t1 = time.perf_counter()
+        embs = api.offline_embeddings(g, cfg, params, chunk_size=other,
+                                      prefix=f"emb_c{other}_",
+                                      device=DEVICE)
+        same = all(np.ascontiguousarray(e[all_nids]).tobytes()
+                   == r.tobytes() for e, r in zip(embs, rows))
+        require(same, f"{path}: chunks of {other} give other bytes than "
+                      f"chunks of {chunk}")
+        log(f"[{path}] chunks of {other}: every layer's bytes equal to "
+            f"chunks of {chunk} ({time.perf_counter() - t1:.2f} s)")
+
+    cases = {}
+    first = node // chunk * chunk
+    seeds = all_nids[first:first + chunk]
+    for layer in range(cfg.num_layers):
+        _, staged, fanout = offline_chunk(torch, g, cfg, params, layer,
+                                          seeds, chunk)
+        ed = staged["blocks"][0]["edge_dst"]
+        em = staged["blocks"][0]["edge_mask"]
+        log(f"[{path}] layer {layer}, the chunk of node {node}: "
+            f"{staged['input_feats'].shape[0]} source rows, "
+            f"{int(em.sum())} live edges, largest group "
+            f"{max_degree(torch, ed[em])}")
+        for name, got in offline_kernel_cases(
+                torch, path, g, cfg, params, staged, fanout, layer,
+                chunk).items():
+            cases.setdefault(name, []).extend(got)
+        del staged
+    del world, rows
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
+def row_count_probe(torch) -> None:
+    """Why the pass runs its products in fixed row tiles: at each product
+    shape of the offline runs, the first rows of one ``torch.bmm`` against
+    the same rows in products of other row counts (logged), and the same
+    through ``_dense``'s row tiles (must be bitwise)."""
+    from repro_torch.api.inference import OFFLINE_ROW_TILE
+    from repro_torch.models.gnn.layers import _dense
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rows = (1, 4, 7, 33, 64, 1024, 4096, 8155, 74560)
+    for k, n in ((100, 256), (256, 256), (256, 16), (64, 1024),
+                 (1024, 1024), (1024, 16)):
+        w = torch.randn((k, n), generator=gen, device=DEVICE)
+        x = torch.randn((1, rows[-1], k), generator=gen, device=DEVICE)
+        base = torch.bmm(x[:, :1], w[None])[0]
+        differ = [m for m in rows[1:]
+                  if not torch.equal(torch.bmm(x[:, :m], w[None])[0, :1],
+                                     base)]
+        tiled = _dense(x[:, :1], w, OFFLINE_ROW_TILE)[0]
+        require(all(torch.equal(_dense(x[:, :m], w, OFFLINE_ROW_TILE)[0, :1],
+                                tiled) for m in rows[1:]),
+                f"row tiles of {OFFLINE_ROW_TILE}: a row's bytes changed "
+                f"with the row count at {k} x {n}")
+        log(f"[offline] one torch.bmm at {k} x {n}: row 0 differs from "
+            f"its 1-row product at row counts {differ} of {list(rows[1:])}; "
+            f"in tiles of {OFFLINE_ROW_TILE} rows equal at all")
+
+
+def phase_offline(torch, launches: dict, extra: dict) -> None:
+    """The offline main paths (GraphSAGE and GAT on product-sim scale 12,
+    typed RGCN on mag-hetero scale 10), each timed; their launch counts go
+    to ``launches`` and the kernel cases on their longest groups to
+    ``extra``."""
+    row_count_probe(torch)
+    product = ["--dataset", "product-sim", "--scale", str(OFFLINE_SCALE)]
+    for path, argv, chunks in (
+            ("offline_graphsage", ["--arch", "graphsage"] + product,
+             OFFLINE_CHUNKS),
+            ("offline_gat", ["--arch", "gat"] + product, OFFLINE_CHUNKS[:1]),
+            ("offline_rgcn", ["--arch", "rgcn", "--dataset", "mag-hetero",
+                              "--hetero", "--scale",
+                              str(RGCN_OFFLINE_SCALE)],
+             (RGCN_OFFLINE_CHUNK,))):
+        t0 = time.perf_counter()
+        launches[path], extra[f"{path}_longest_chunk"] = phase_offline_run(
+            torch, path, argv, chunks)
+        log(f"[{path}] phase {time.perf_counter() - t0:.2f} s")
 
 
 def _sums(cases: list) -> dict:
@@ -2405,6 +2717,7 @@ def main() -> int:
                                               RGCN_TRAIN)
     phase_rgcn_untyped(torch)
     phase_link_prediction(torch, launches, extra)
+    phase_offline(torch, launches, extra)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]

@@ -1,4 +1,5 @@
-"""Online inference service (the port of ``repro/api/inference.py``).
+"""Online inference service and the offline layer-wise pass (the port of
+``repro/api/inference.py``).
 
 :class:`InferenceServer` accepts single-node / small-batch predict
 requests, samples each request's ego networks through the SAME
@@ -23,9 +24,17 @@ features of each node type come through ``KVClient.pull_typed_degraded``
 and the forward resolves the config's name-keyed fanouts with the
 schema's ``etype_id``.
 
-The server runs on the card unless it is given ``device="cpu"``.
-``offline_embeddings`` (the layer-wise full-graph pass) is not ported yet
-(ROADMAP queue A).
+:func:`offline_embeddings` is DGL's layer-wise ``inference()``: for each
+layer, every chunk's full in-neighbourhood is sampled (fanout = the max
+in-degree, :func:`~repro_torch.core.sampler.full_neighbor_fanouts`), the
+previous layer's rows are pulled through the KVStore, the training
+forward's layer (:func:`~repro_torch.models.gnn.apply_gnn_layer`) runs on
+one staged arena, and the chunk's rows are pushed back as a
+``DistTensor``. Its dense products run in calls of a fixed
+``OFFLINE_ROW_TILE`` rows, so a node's bytes do not depend on the chunk
+size.
+
+Both run on the card unless they are given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -38,10 +47,16 @@ import torch
 
 from ..core.kvstore.cache import CacheConfig, FeatureCache
 from ..core.pipeline.minibatch import host_blocks
-from ..core.sampler import DistributedSampler, sample_ego_networks
+from ..core.sampler import (DistributedSampler, full_neighbor_fanouts,
+                            sample_ego_networks)
 from ..kernels.pack import device_stage, stack_trees
-from ..models.gnn import GNNConfig, apply_gnn, params_to
-from .dist_graph import DistGraph
+from ..models.gnn import (GNNConfig, apply_gnn, apply_gnn_layer, apply_head,
+                          params_to)
+from .dist_graph import DistGraph, DistTensor
+
+# rows per dense product in the layer-wise pass: every product of every
+# chunk has this one shape, so BLAS runs the same kernel on each row
+OFFLINE_ROW_TILE = 4096
 
 
 def resolve_device(device) -> torch.device:
@@ -451,3 +466,136 @@ class InferenceServer:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+
+# ---------------------------------------------------------------------------
+# offline layer-wise inference (DGL's ``inference()`` idiom)
+# ---------------------------------------------------------------------------
+
+def _layer_out_dim(cfg: GNNConfig, params: dict, layer: int) -> int:
+    p = params["layers"][layer]
+    if cfg.arch == "gat":
+        return int(p["b"].shape[0])
+    return int(p["w_self"].shape[1])
+
+
+def offline_embeddings(g: DistGraph, cfg: GNNConfig, params, *,
+                       chunk_size: Optional[int] = None,
+                       prefix: str = "emb", device=None,
+                       spans: Optional[dict] = None) -> List[DistTensor]:
+    """Full-graph layer-wise inference: materialize every layer's output
+    for EVERY node as KVStore-resident ``DistTensor``s.
+
+    Layer ``l`` makes one pass over all nodes in ``chunk_size`` blocks
+    (default ``cfg.batch_size``): each chunk's single-hop FULL-neighbor
+    block (static capacity ``chunk_size * (1 + max_in_degree)``) is built
+    by the owner-compute sampler, the layer's live input rows are pulled
+    through the KVStore (layer 0: the features; layer l>0:
+    ``"{prefix}{l-1}"``) and staged with one copy to ``device`` (the card
+    unless ``"cpu"``), where the padded slots are filled, the training
+    forward's layer runs without autograd, and the chunk's live rows are
+    pushed back to ``"{prefix}{l}"`` (registered ``mutable=True``). The
+    last tensor holds the model's logits (GAT's shared head applied).
+
+    Exactness: per node the result is byte-equal to a full-neighbor
+    mini-batch forward run with ``row_tile=OFFLINE_ROW_TILE`` and
+    invariant to ``chunk_size``: every aggregation sums a node's edges in
+    adjacency order whatever the chunking, and every dense product runs
+    in calls of ``OFFLINE_ROW_TILE`` rows. ``spans``, when given, accumulates the
+    seconds of each step (host clock; ``device_forward`` by CUDA events).
+    """
+    chunk_size = int(cfg.batch_size if chunk_size is None else chunk_size)
+    if chunk_size < 2:
+        # the reference's floor: a 1-node chunk moves XLA's masked segment
+        # sum onto another reduction code path; every block the system
+        # builds (training, eval, serving) has at least 2 seeds
+        raise ValueError("chunk_size must be >= 2")
+    device = resolve_device("cuda" if device is None else device)
+    on_card = device.type == "cuda"
+    params = params_to(params, device)
+    schema = g.schema if g.hetero else None
+    fanouts = full_neighbor_fanouts(g.partitions, cfg.num_layers,
+                                    schema=schema)
+    client = g.new_client()
+    all_nids = np.arange(g.num_nodes(), dtype=np.int64)
+    if spans is None:
+        spans = {}
+    for k in ("sample", "pull", "stage", "forward", "device_forward",
+              "push"):
+        spans.setdefault(k, 0.0)
+
+    out: List[DistTensor] = []
+    prev_name: Optional[str] = None
+    for l in range(cfg.num_layers):
+        last = l == cfg.num_layers - 1
+        d_out = (cfg.num_classes if last and "head" in params
+                 else _layer_out_dim(cfg, params, l))
+        name = f"{prefix}{l}"
+        g.store.init_data(name, (d_out,), np.float32, "node", mutable=True)
+
+        sampler = DistributedSampler(
+            g.book, g.partitions, [fanouts[l]], chunk_size,
+            machine=g.machine, transport=None, seed=0, schema=schema,
+            ntype_of_node=g.typed.ntype_of_node if g.hetero else None)
+        rel_offs = None
+        if sampler.rel_caps[0] is not None:
+            rel_offs = tuple(int(x) for x in sampler.rel_caps[0])
+
+        t0 = time.perf_counter()
+        for mb in sample_ego_networks(sampler, client, g.feat_name,
+                                      all_nids, typed=None,
+                                      drop_last=False, pull_feats=False):
+            t1 = time.perf_counter()
+            # only the live input rows are pulled and staged: the padded
+            # slots repeat the first input node (``pad_block``), so its
+            # row is repeated on the device, the tensor the reference's
+            # pull of every slot would give
+            n_src = mb.blocks[0].num_src
+            gids = mb.input_gids[:n_src]
+            if l > 0:
+                h_live = client.pull(prev_name, gids)
+            elif g.hetero:
+                h_live = client.pull_typed(g.feat_name, gids, g.typed,
+                                           ntypes=mb.input_ntypes[:n_src])
+            else:
+                h_live = client.pull(g.feat_name, gids)
+            t2 = time.perf_counter()
+            staged = device_stage({"h": h_live,
+                                   "block": host_blocks(mb)[0]},
+                                  device).unpack()
+            t3 = time.perf_counter()
+            if on_card:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record()
+            with torch.inference_mode():
+                h_src = staged["h"]
+                pad = mb.blocks[0].cap_src - n_src
+                if pad:
+                    h_src = torch.cat([h_src, h_src[:1].expand(pad, -1)])
+                h = apply_gnn_layer(cfg, params, l, h_src,
+                                    staged["block"], chunk_size,
+                                    rel_offsets=rel_offs,
+                                    row_tile=OFFLINE_ROW_TILE)
+                if last:
+                    h = apply_head(params, h, OFFLINE_ROW_TILE)
+            if on_card:
+                events[1].record()
+            rows = h.cpu().numpy()
+            t4 = time.perf_counter()
+            n_live = int(mb.seed_mask.sum())
+            client.push(name, mb.seeds[:n_live], rows[:n_live],
+                        reduce="assign")
+            t5 = time.perf_counter()
+            spans["sample"] += t1 - t0
+            spans["pull"] += t2 - t1
+            spans["stage"] += t3 - t2
+            spans["forward"] += t4 - t3
+            spans["push"] += t5 - t4
+            if on_card:
+                spans["device_forward"] += (
+                    events[0].elapsed_time(events[1]) / 1e3)
+            t0 = time.perf_counter()
+        prev_name = name
+        out.append(g.ndata[name])
+    return out

@@ -1,4 +1,5 @@
-"""GNN serving launcher (the port of ``repro/launch/gnn_serve.py``).
+"""GNN serving launcher: online ego-network predictions and the offline
+pass (the port of ``repro/launch/gnn_serve.py``).
 
 Stands up a :class:`repro_torch.api.InferenceServer` over a partitioned
 graph, on the card unless ``--device cpu`` is given, and drives it with an
@@ -13,8 +14,12 @@ micro-batch occupancy and cache hit rates as JSON.
 (``--arch rgcn --dataset mag-hetero --hetero``), every relation at the
 layer's fanout.
 
-The full-graph layer-wise pass (``--offline`` and its ``--chunk-size``)
-is not ported yet (ROADMAP queue A).
+``--offline`` runs the full-graph layer-wise embedding pass
+(:func:`repro_torch.api.offline_embeddings`) instead, in chunks of
+``--chunk-size`` nodes, and prints its wall time:
+
+    PYTHONPATH=src python -m repro_torch.launch.gnn_serve --arch graphsage \
+        --offline --scale 10
 """
 from __future__ import annotations
 
@@ -70,6 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admission control: reject requests "
                          "(ServerOverloaded) once this many chunks are "
                          "queued (default off)")
+    ap.add_argument("--offline", action="store_true",
+                    help="run the full-graph layer-wise embedding pass "
+                         "(repro_torch.api.offline_embeddings) and exit")
+    ap.add_argument("--chunk-size", type=int, default=0,
+                    help="offline pass: nodes per layer-wise chunk "
+                         "(0 = model batch size)")
     ap.add_argument("--seed", type=int, default=0,
                     help="parameters + request-trace seed")
     ap.add_argument("--smoke", action="store_true",
@@ -129,6 +140,25 @@ def make_server(args, world):
         micro_batch_window_ms=args.micro_batch_window,
         sampler_seed=args.seed, deadline_ms=args.deadline_ms,
         max_pending_chunks=args.max_pending_chunks, device=args.device)
+
+
+def run_offline(args, world=None) -> dict:
+    """The layer-wise pass over ``world`` (built from ``args`` when not
+    given); prints the JSON summary."""
+    from ..api import offline_embeddings
+
+    g, cfg, params = build_world(args) if world is None else world
+    t0 = time.perf_counter()
+    embs = offline_embeddings(g, cfg, params,
+                              chunk_size=args.chunk_size or None,
+                              device=args.device)
+    dt = time.perf_counter() - t0
+    out = {"mode": "offline", "num_nodes": int(g.num_nodes()),
+           "layers": [list(e.shape) for e in embs],
+           "wall_s": round(dt, 4),
+           "nodes_per_s": round(g.num_nodes() * cfg.num_layers / dt, 1)}
+    print(json.dumps(out, indent=2))
+    return out
 
 
 def run_serving(args, world=None) -> dict:
@@ -196,7 +226,10 @@ def run_serving(args, world=None) -> dict:
 
 
 def main(argv=None):
-    return run_serving(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.offline:
+        return run_offline(args)
+    return run_serving(args)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,14 @@ chunk. The trainer stacks its T trainers' batches on the same axis.
 On the card every reduction over edges, forward and backward, is a kernel
 that sums in a fixed order, so two runs of a training step give the same
 bytes.
+
+The dense products take ``row_tile``: None runs one product over all rows;
+an int T runs them in calls of exactly T rows (the last padded with
+zeros), so a row's bytes never depend on how many rows share the call.
+BLAS libraries on the CPU and the card pick their kernel, and with it the
+order of a row's sums, by the product's shape; the layer-wise pass
+(:func:`~repro_torch.api.offline_embeddings`) needs the same bytes for a
+node at any chunk size.
 """
 from __future__ import annotations
 
@@ -50,9 +58,18 @@ def _flat_edges(block: dict, num_slots: int, cap_src: int, num_dst: int):
             block["edge_mask"].reshape(-1))
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(S, N, d_in) @ (d_in, d_out), one identical product per slot."""
-    return torch.bmm(x, w.expand(x.shape[0], -1, -1))
+def _dense(x: torch.Tensor, w: torch.Tensor, row_tile=None) -> torch.Tensor:
+    """(S, N, d_in) @ (d_in, d_out): one identical product per slot, or,
+    with ``row_tile`` T, products of exactly T rows over the S*N rows."""
+    if row_tile is None:
+        return torch.bmm(x, w.expand(x.shape[0], -1, -1))
+    s, n, d_in = x.shape
+    rows = x.reshape(s * n, d_in)
+    pad = -rows.shape[0] % row_tile
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, d_in))])
+    out = torch.cat([torch.mm(t, w) for t in rows.split(row_tile)])
+    return out[:s * n].view(s, n, w.shape[-1])
 
 
 def _head_dot(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -63,7 +80,8 @@ def _head_dot(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 
 def sage_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
-               activation=torch.relu, impl: str = "auto") -> torch.Tensor:
+               activation=torch.relu, impl: str = "auto",
+               row_tile=None) -> torch.Tensor:
     """GraphSAGE mean aggregator: act(W_self h_v + W_neigh mean_u h_u)."""
     stacked = h_src.dim() == 3
     h = h_src if stacked else h_src[None]
@@ -78,8 +96,8 @@ def sage_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
     agg = agg / _degrees(edge_dst, edge_mask, n, impl=impl,
                          groups=groups)[:, None]
     h_self = h[:, :num_dst]
-    out = (_dense(h_self, params["w_self"])
-           + _dense(agg.view(s, num_dst, f), params["w_neigh"])
+    out = (_dense(h_self, params["w_self"], row_tile)
+           + _dense(agg.view(s, num_dst, f), params["w_neigh"], row_tile)
            + params["b"])
     if activation is not None:
         out = activation(out)
@@ -87,7 +105,7 @@ def sage_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
 
 
 def gat_attention_inputs(params, h_src: torch.Tensor, block: dict,
-                         num_dst: int):
+                         num_dst: int, row_tile=None):
     """The GAT layer up to its attention tail, with the stack axis S (1
     without one) flattened into the rows: (h_proj (S*V, H, d_h), el
     (S*V, H), er (S*num_dst, H), edge_src, edge_dst, edge_mask (S*E,))."""
@@ -96,7 +114,8 @@ def gat_attention_inputs(params, h_src: torch.Tensor, block: dict,
     w = params["w"]
     heads, d_h = w.shape[1], w.shape[2]
     edge_src, edge_dst, edge_mask = _flat_edges(block, s, v, num_dst)
-    h_proj = _dense(h, w.reshape(f, heads * d_h)).view(s, v, heads, d_h)
+    h_proj = _dense(h, w.reshape(f, heads * d_h), row_tile).view(
+        s, v, heads, d_h)
     el = _head_dot(h_proj, params["a_l"]).reshape(s * v, heads)
     er = _head_dot(h_proj[:, :num_dst], params["a_r"]).reshape(
         s * num_dst, heads)
@@ -106,13 +125,13 @@ def gat_attention_inputs(params, h_src: torch.Tensor, block: dict,
 
 def gat_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
               activation=F.elu, impl: str = "auto",
-              negative_slope: float = 0.2) -> torch.Tensor:
+              negative_slope: float = 0.2, row_tile=None) -> torch.Tensor:
     """GAT layer, multi-head concat. params: w (d_in, H, d_h), a_l/a_r
     (H, d_h), b (H*d_h,)."""
     stacked = h_src.dim() == 3
     s = h_src.shape[0] if stacked else 1
     h_proj, el, er, edge_src, edge_dst, edge_mask = gat_attention_inputs(
-        params, h_src, block, num_dst)
+        params, h_src, block, num_dst, row_tile)
     n = s * num_dst
     if resolve_impl(impl, h_src) == "cuda":
         # one destination order for the scores' gather, K4 and K3, and one
@@ -160,7 +179,7 @@ def rgcn_relation_edges(block: dict, num_slots: int, cap_src: int,
 
 def rgcn_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
                num_rels: int, activation=torch.relu, impl: str = "auto",
-               rel_offsets=None) -> torch.Tensor:
+               rel_offsets=None, row_tile=None) -> torch.Tensor:
     """RGCN: h_v = act(W_0 h_v + sum_r (1/c_{v,r}) sum_{u in N_r(v)} W_r h_u).
 
     params: w_rel (R, d_in, d_out), w_self (d_in, d_out), b (d_out,).
@@ -183,13 +202,13 @@ def rgcn_layer(params, h_src: torch.Tensor, block: dict, num_dst: int,
     s, v, _f = h.shape
     n = s * num_dst
     on_card = resolve_impl(impl, h) == "cuda"
-    out = _dense(h[:, :num_dst], params["w_self"]) + params["b"]
+    out = _dense(h[:, :num_dst], params["w_self"], row_tile) + params["b"]
     for r in range(num_rels):
         edges = rgcn_relation_edges(block, s, v, num_dst, r, rel_offsets)
         if edges is None:             # relation not sampled at this layer
             continue
         es, ed, em = edges
-        proj = _dense(h, params["w_rel"][r])          # (S, cap_src, d_out)
+        proj = _dense(h, params["w_rel"][r], row_tile)   # (S, cap_src, d_out)
         d_out = proj.shape[-1]
         groups = dst_groups(ed, em, n) if on_card else None
         agg = fused_gather_aggregate(proj.reshape(s * v, d_out), es, ed, em,

@@ -144,43 +144,55 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 
 def apply_gnn_layer(cfg: GNNConfig, params: dict, layer: int,
                     h: torch.Tensor, block: dict, num_dst: int,
-                    rel_offsets: Optional[tuple] = None) -> torch.Tensor:
+                    rel_offsets: Optional[tuple] = None,
+                    row_tile: Optional[int] = None) -> torch.Tensor:
     """One layer of the forward pass: (cap_src, d_in) -> (num_dst, d_out),
     or the same with a leading stack axis. The last layer has no
     activation; the others ReLU (GraphSAGE, RGCN) or ELU (GAT).
     ``rel_offsets`` are an RGCN layer's static relation slot offsets on a
-    typed block (None: the untyped layout)."""
+    typed block (None: the untyped layout); ``row_tile`` runs the dense
+    products in calls of that many rows (:func:`~.layers._dense`)."""
     _check_arch(cfg.arch)
     last = layer == cfg.num_layers - 1
     p = params["layers"][layer]
     if cfg.arch == "gat":
         return gat_layer(p, h, block, num_dst,
-                         activation=None if last else F.elu, impl=cfg.impl)
+                         activation=None if last else F.elu, impl=cfg.impl,
+                         row_tile=row_tile)
     act = None if last else torch.relu
     if cfg.arch == "rgcn":
         return rgcn_layer(p, h, block, num_dst, cfg.num_rels,
                           activation=act, impl=cfg.impl,
-                          rel_offsets=rel_offsets)
-    return sage_layer(p, h, block, num_dst, activation=act, impl=cfg.impl)
+                          rel_offsets=rel_offsets, row_tile=row_tile)
+    return sage_layer(p, h, block, num_dst, activation=act, impl=cfg.impl,
+                      row_tile=row_tile)
+
+
+def apply_head(params: dict, h: torch.Tensor,
+               row_tile: Optional[int] = None) -> torch.Tensor:
+    """GAT's shared output ``head`` on the last layer's rows (with or
+    without the stack axis); the rows unchanged where there is none."""
+    if "head" not in params:
+        return h
+    out = _dense(h if h.dim() == 3 else h[None], params["head"], row_tile)
+    return out if h.dim() == 3 else out[0]
 
 
 def apply_gnn(cfg: GNNConfig, params: dict, batch: dict,
-              etype_id=None) -> torch.Tensor:
+              etype_id=None, row_tile: Optional[int] = None) -> torch.Tensor:
     """Forward pass -> (batch_size, num_classes) logits (with the batch's
     stack axis in front, if it has one). On a typed config the relation
     slot offsets come from ``cfg`` (``etype_id`` resolves name-keyed
-    fanouts), never from the batch."""
+    fanouts), never from the batch. ``row_tile`` as in
+    :func:`apply_gnn_layer`."""
     h = batch["input_feats"]
     dst_caps = cfg.dst_caps()
     rel_offs = (cfg.layer_rel_offsets(etype_id) if cfg.typed
                 else [None] * cfg.num_layers)
     for l, block in enumerate(batch["blocks"]):
         h = apply_gnn_layer(cfg, params, l, h, block, dst_caps[l],
-                            rel_offsets=rel_offs[l])
-    if "head" in params:
-        out = _dense(h if h.dim() == 3 else h[None], params["head"])
-        h = out if h.dim() == 3 else out[0]
-    return h
+                            rel_offsets=rel_offs[l], row_tile=row_tile)
+    return apply_head(params, h, row_tile)
 
 
 # ---------------------------------------------------------------------------

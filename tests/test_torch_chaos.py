@@ -31,6 +31,17 @@ HYPER_LAUNCH = ["--arch", "graphsage", "--scale", "10", "--epochs", "2",
                 "--cache-budget-mb", "8", "--device", "cpu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def homo_ds():
     return get_dataset("product-sim", scale=10)

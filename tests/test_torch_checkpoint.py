@@ -29,6 +29,17 @@ from repro_torch.optim.optimizers import tree_leaves
 OFFSETS = np.array([0, 10, 25, 40])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- tree round-trips ----------------------------------------------------
 
 def _tree(rng):

@@ -17,6 +17,17 @@ from repro_torch.kernels import edge_softmax
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("h", [1, 2, 3])
 def test_card_route_refuses_a_tracked_input_and_runs_under_no_grad(
         monkeypatch, h):

@@ -37,6 +37,17 @@ OFFSETS = np.array([0, 10, 25, 40])
 HYPER = dict(beta1=0.9, beta2=0.999, lr=1e-2, eps=1e-8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tables(rng, n, d, dtype=np.float32):
     w = rng.standard_normal((n, d)).astype(dtype)
     m = (rng.standard_normal((n, d)) * 0.1).astype(np.float32)

@@ -54,6 +54,17 @@ CFG = dict(arch="gat", in_dim=100, hidden_dim=32, num_classes=16,
            fanouts=[4, 3, 2], batch_size=8, num_heads=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edges(rng, e, src_n, dst_n, live=0.7, empty=0):
     """Random edges padded as ``pad_block`` pads them (masked slots carry
     src 0 and dst 0); destinations below ``empty`` get no live edge."""

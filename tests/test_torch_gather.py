@@ -14,6 +14,17 @@ from repro_torch.kernels import gather_rows, gather_rows_cuda
 from repro_torch.kernels import gather_rows_ref as port_ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("v,f,n", [(50, 100, 37), (9, 7, 20), (40, 600, 5)])
 def test_gather_rows_exact_vs_reference(v, f, n, idx_dtype):

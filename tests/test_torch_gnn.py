@@ -30,6 +30,17 @@ CFG = dict(arch="graphsage", in_dim=100, hidden_dim=32, num_classes=16,
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def batches():
     """Two real padded host batches (the second a ragged chunk)."""

@@ -52,6 +52,17 @@ PARAM_TOL = dict(rtol=1e-4, atol=1e-4)
 EPOCHS = 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ds():
     return get_dataset("mag-hetero", scale=SCALE)

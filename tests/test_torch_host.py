@@ -22,6 +22,17 @@ from repro_torch.kernels.pack import device_stage, pack
 SCALE = 9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def worlds():
     kw = dict(num_machines=2, trainers_per_machine=2, seed=3)

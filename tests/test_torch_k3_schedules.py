@@ -59,6 +59,17 @@ FWD_SHAPES = BWD_SHAPES + [(12, 8, 4), (12, 8, 1)]
 PALLAS_SHAPES = {(2, 128, 4), (2, 8, 4), (1, 3, 1), (12, 8, 4)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ids(shapes):
     return [f"H{h}-Dh{dh}-vec{v}" for h, dh, v in shapes]
 

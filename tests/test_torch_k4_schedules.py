@@ -41,6 +41,17 @@ LENGTHS = list(range(101)) + [5000]     # every group length 0-100, and long
 HEADS = [1, 2, 8, 12]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(seed, lengths=LENGTHS, pad=301, spread=3.0, h=2,
            pad_dst=0):
     """Destination-keyed slots: group d holds ``lengths[d]`` live edges;

@@ -32,6 +32,17 @@ from repro_torch.kernels import (dst_groups, fused_gather_aggregate,
 ROOT = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edges(rng, e, src_n, dst_n, live=0.7):
     """Random edges; masked-off edges carry dst 0 and src 0, exactly as
     ``pad_block`` pads them."""

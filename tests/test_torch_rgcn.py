@@ -42,6 +42,17 @@ NUM_DST, NUM_RELS, CAP_SRC = 5, 3, 14
 REL_OFFSETS = (0, 10, 15, 25)        # relation budgets of 10, 5 and 10 slots
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(rng, empty_rel=None):
     """A typed block of NUM_RELS relations (3, 2 and 6 live edges; none
     for ``empty_rel``) padded with ``pad_typed_block``, as the host

@@ -48,6 +48,17 @@ LENGTHS = list(range(101))          # every group length 0-100
 V = 300                             # K1's source rows
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(seed, lengths, pad):
     """Destination-keyed edges: group d holds ``lengths[d]`` live edges,
     each from a seeded source row; ``pad`` masked slots (src 0, dst 0, as

@@ -28,6 +28,17 @@ CFG = dict(arch="graphsage", in_dim=100, hidden_dim=16, num_classes=16,
 WORLD = dict(num_machines=2, trainers_per_machine=1, seed=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def world():
     ref_g = RefDistGraph(ref_get_dataset("product-sim", scale=10), **WORLD)

@@ -41,6 +41,17 @@ ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _block(seed, degrees, v, num_dst, pad):
     """Edges of a source-keyed block: ``degrees`` maps a source row to its
     live edges, each to a seeded destination; ``pad`` masked slots (src 0,

@@ -54,6 +54,17 @@ LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tensors are small, so more
+    threads buy nothing alone, and with the suite spread over several
+    worker processes they contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_leaves(tree):
     return [np.asarray(x) for x in jax.tree.leaves(tree)]
 
