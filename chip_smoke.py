@@ -181,7 +181,31 @@ Phases, each of which exits non-zero when it fails:
                product shape of the runs, whether one ``torch.bmm``
                changes a row's bits with the number of rows (logged) and
                that the pass's row tiles do not (required).
-13. report  -- a JSON line of every ported kernel (its times summed over
+13. lm_serve -- the LM serving path (``repro_torch.models.lm``,
+               ``repro_torch.launch.serve``), which launches none of
+               K1-K6 (every count 0 just after): (a) each of the ten LM
+               ids at ``smoke_variant`` width in float32, parameters drawn
+               on the CPU and copied to the card, prefill 2 x 24 and 4
+               decode steps on the card within rtol 1e-4, atol 1e-5 (atol
+               scaled by max|logit| / 4 above 4, as the CPU tests) of the
+               same on the CPU, and every step within 5e-3 of ``forward``
+               over the whole sequence; (b) llama3-8b, mamba2-2.7b and
+               zamba2-7b at full width in float32 (32, 11 and 27 GB of
+               weights), prefill 2 x 64 and one decode step within 5e-3
+               of the full forward's last positions (with tied
+               embeddings, times max|logit| / 4 above 4); (c)
+               ``launch.serve`` at full width in bfloat16, greedy, batch
+               4, prompt 64, 32 tokens, for every id whose weights fit the
+               card (all but qwen3-moe-235b-a22b's 470 GB), twice: the
+               same tokens and logits bit for bit, and every step of the
+               first run against ``forward`` over the prompt and the
+               generated tokens within the id's ``LM_BF16_BOUND_U``;
+               prefill ms, decode ms
+               a step, tok/s and peak memory per id, each model freed
+               before the next; llama3-8b and granite-moe-3b-a800m's
+               prefill and 7 decode steps once more under
+               ``torch.profiler`` (the card's busy share, its kernels).
+14. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
@@ -208,6 +232,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -322,6 +347,28 @@ LP_GAT_TRAIN = ["--arch", "gat"] + LP_TRAIN[2:] + ["--scale", "7"]
 OFFLINE_SCALE, OFFLINE_CHUNKS = 12, (64, 16, 7)
 RGCN_OFFLINE_SCALE, RGCN_OFFLINE_CHUNK = 10, 16
 OFFLINE_CHECK_NODES = 16
+# the LM serving path: smoke-width parity (batch, prompt, decode steps),
+# llama3-8b in float32 at full width, and the launcher at full width in
+# bfloat16; decode against the full forward within the bound of
+# tests/test_lm_archs.py
+LM_SMOKE = (2, 24, 4)
+LM_F32_ARCHS, LM_F32_SHAPE = ("llama3-8b", "mamba2-2.7b", "zamba2-7b"), (2, 64)
+LM_SERVE = (4, 64, 32)           # batch, prompt, generated tokens
+LM_TOO_LARGE = ("qwen3-moe-235b-a22b",)
+LM_PROFILED = ("llama3-8b", "granite-moe-3b-a800m")
+LM_DECODE_BOUND = 5e-3
+# (c)'s bfloat16 decode against the full forward in units of u = 2^-8:
+# (largest difference over max |forward|, mean over mean |forward|) for
+# each id, 1.5 times what an H100 showed, rounded up. These are rounding,
+# not faults: the same pairs in float32 ((b), with mamba2-2.7b and
+# zamba2-7b) agree within 7e-5 of max |logit|. Random weights let
+# bfloat16's rounding grow over the depth; mamba2-2.7b's 64 SSM layers
+# take its logits to 240 and its decode to 28% of them on average.
+LM_BF16_BOUND_U = {"zamba2-7b": (57, 48), "qwen3-32b": (22, 20),
+                   "llama3-8b": (15, 13), "whisper-base": (3.3, 2.8),
+                   "mamba2-2.7b": (155, 110),
+                   "granite-moe-3b-a800m": (13, 13), "qwen2-0.5b": (11, 10),
+                   "pixtral-12b": (18, 15), "qwen3-8b": (17, 15)}
 
 
 class SmokeFailure(RuntimeError):
@@ -1739,11 +1786,12 @@ def profiled(torch, path: str, what: str, fn) -> None:
                        getattr(e, "self_cuda_time_total", 0.0)) / 1e3
 
     # kernels and copies run on one stream, so their times add up
-    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if on_card(e)) / 1e3
+    device_events = [e for e in prof.events() if on_card(e)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
     log(f"[profile] {path}: {what} {wall_ms:.3f} ms wall, the card busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; idle "
-        f"{100 - 100 * busy_ms / wall_ms:.1f}%)")
+        f"{100 - 100 * busy_ms / wall_ms:.1f}%) over "
+        f"{len(device_events)} kernels and copies")
     events = prof.key_averages()
     top_dev = sorted((e for e in events if on_card(e)), key=dev_ms,
                      reverse=True)[:10]
@@ -2585,6 +2633,242 @@ def phase_offline(torch, launches: dict, extra: dict) -> None:
         log(f"[{path}] phase {time.perf_counter() - t0:.2f} s")
 
 
+def lm_close(torch, got, want, what) -> float:
+    """rtol 1e-4, atol 1e-5 with atol scaled by max|want| / 4 above 4 (a
+    float32 sum's error scales with its terms: tied-embedding logits reach
+    70); returns the max abs error."""
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()) / 4)
+    check_close(torch, got.float(), want, 1e-4, 1e-5 * scale, what)
+    return max_err(torch, got, want)
+
+
+def lm_run(torch, cfg, params, batch, steps, cache_len) -> list:
+    """Prefill ``batch``, then feed ``steps`` (K, B, 1) one at a time:
+    [prefill's last logits, each decode step's logits]."""
+    from repro_torch.models.lm import decode_step, prefill
+
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    logits, cache = prefill(cfg, params, batch["tokens"], cache_len,
+                            **extras)
+    out = [logits]
+    for t in steps:
+        logits, cache = decode_step(cfg, params, cache, t)
+        out.append(logits)
+    return out
+
+
+def lm_forward_check(torch, cfg, params, batch, steps, logits, what,
+                     bound: float = LM_DECODE_BOUND) -> float:
+    """Each of ``lm_run``'s logits against ``forward`` over the prompt and
+    the fed tokens at its position, within ``bound``."""
+    from repro_torch.models.lm import forward
+
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    seq = torch.cat([batch["tokens"]] + list(steps), dim=1)
+    full, _ = forward(cfg, params, seq, **extras)
+    first = full.shape[1] - len(steps) - 1
+    err = max(max_err(torch, got, full[:, first + i])
+              for i, got in enumerate(logits))
+    require(bool(torch.isfinite(full).all()), f"{what}: forward not finite")
+    require(err < bound, f"{what}: prefill / decode differ from the full "
+                         f"forward by {err:.3e} (bound {bound:.3e})")
+    return err
+
+
+def lm_smoke_parity(torch, arch_id) -> None:
+    """(a): one id at smoke width, on the card against the CPU."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.optimizers import tree_map
+
+    cfg = smoke_variant(get_config(arch_id))
+    b, s, k = LM_SMOKE
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = serve.make_batch(cfg, b, s, "cpu")
+    steps = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (k, b, 1)))
+    cache_len = serve.serve_cache_len(cfg, s, k)
+    cpu = lm_run(torch, cfg, params, batch, steps, cache_len)
+    params = tree_map(lambda t: t.to(DEVICE), params)
+    batch = {n: v.to(DEVICE) for n, v in batch.items()}
+    steps = steps.to(DEVICE)
+    card = lm_run(torch, cfg, params, batch, steps, cache_len)
+    err = max(lm_close(torch, g, c, f"lm {arch_id} step {i}: card vs CPU")
+              for i, (g, c) in enumerate(zip(card, [t.to(DEVICE)
+                                                    for t in cpu])))
+    derr = lm_forward_check(torch, cfg, params, batch, steps, card,
+                            f"lm {arch_id}")
+    log(f"[lm_serve] {arch_id} smoke width ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}): prefill {b}x{s} + {k} decode steps, card vs "
+        f"CPU max abs err {err:.3e} (max |logit| "
+        f"{max(float(c.abs().max()) for c in cpu):.2f}); decode vs "
+        f"forward {derr:.3e}")
+
+
+def lm_full_f32(torch, cfg) -> None:
+    """(b): ``cfg`` at full width in float32, prefill and one decode step
+    against the full forward."""
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.optimizers import tree_leaves
+
+    b, s = LM_F32_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b, s)), device=DEVICE)}
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, b, 1)),
+                            device=DEVICE)
+    logits = lm_run(torch, cfg, params, batch, steps, s + 8)
+    top = max(float(t.abs().max()) for t in logits)
+    # tied embeddings take mamba2-2.7b's logits to 240: its bound scales
+    # by max |logit| / 4 above 4, as (a) scales its atol
+    bound = LM_DECODE_BOUND * (max(1.0, top / 4) if cfg.tie_embeddings
+                               else 1.0)
+    err = lm_forward_check(torch, cfg, params, batch, steps, logits,
+                           f"lm {cfg.name} float32", bound)
+    torch.cuda.synchronize()
+    log(f"[lm_serve] {cfg.name} full width float32 ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, {nbytes / 1e9:.2f} GB of weights): "
+        f"prefill {b}x{s} and one decode step against the full forward, "
+        f"max abs err {err:.3e} (bound {bound:.3e}; max |logit| "
+        f"{top:.2f}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.2f} s")
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+def lm_serve_run(torch, arch_id, argv) -> None:
+    """(c): ``launch.serve`` twice on one id; the same tokens and logits
+    bit for bit."""
+    from repro_torch.launch import serve
+
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        runs.append(serve.main(["--arch", arch_id, *argv]))
+        torch.cuda.empty_cache()
+    a, b = runs
+    require(torch.equal(a["tokens"], b["tokens"]),
+            f"lm {arch_id}: two runs generated other tokens")
+    require(all(torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])),
+            f"lm {arch_id}: two runs' logits differ in their bits")
+    require(all(bool(torch.isfinite(x).all()) for x in a["logits"]),
+            f"lm {arch_id}: logits not finite")
+    bsz, gen = a["tokens"].shape
+    max_u, mean_u = lm_bf16_forward_check(torch, arch_id, a)
+    for i, r in enumerate(runs):
+        log(f"[lm_serve] {arch_id} run {i + 1}: prefill "
+            f"{r['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{r['decode_s'] * 1e3 / (gen - 1):.3f} ms a step, "
+            f"{bsz * (gen - 1) / r['decode_s']:.1f} tok/s")
+    log(f"[lm_serve] {arch_id}: tokens and logits bitwise equal over 2 "
+        f"runs; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"decode vs forward in bfloat16 max {max_u:.3f} u, mean "
+        f"{mean_u:.3f} u (bound {LM_BF16_BOUND_U[arch_id]} u)")
+
+
+def lm_bf16_forward_check(torch, arch_id, res) -> tuple:
+    """(c): every step of one ``launch.serve`` run (``res``) against
+    ``forward`` over the prompt and the tokens it generated, in units of
+    u = 2^-8: the largest difference over the step's max |forward| and the
+    mean over its mean |forward|, each the worst step's. The launcher's
+    parameters and batch are drawn again from its seeds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import forward, init_params
+
+    cfg = get_config(arch_id)
+    bsz, gen = res["tokens"].shape
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    batch = serve.make_batch(cfg, bsz, LM_SERVE[1], DEVICE)
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    seq = torch.cat([batch["tokens"], res["tokens"][:, :-1]], dim=1)
+    with torch.no_grad():
+        full, _ = forward(cfg, params, seq, **extras)
+    first = full.shape[1] - gen
+    max_u = mean_u = 0.0
+    for i, got in enumerate(res["logits"]):
+        want = full[:, first + i].float()
+        d = (got.float() - want).abs()
+        max_u = max(max_u, float(d.max() / want.abs().max()) / 2 ** -8)
+        mean_u = max(mean_u, float(d.mean() / want.abs().mean()) / 2 ** -8)
+    require(bool(torch.isfinite(full).all()), f"lm {arch_id}: bfloat16 "
+                                              f"forward not finite")
+    bound = LM_BF16_BOUND_U[arch_id]
+    require(max_u <= bound[0] and mean_u <= bound[1],
+            f"lm {arch_id}: bfloat16 decode differs from the full forward "
+            f"by max {max_u:.3f} u, mean {mean_u:.3f} u")
+    del params, full
+    torch.cuda.empty_cache()
+    return max_u, mean_u
+
+
+def lm_profile(torch, cfg, shape, steps: int = 8) -> None:
+    """Where the launcher's time goes: ``generate`` over ``steps`` tokens
+    (prefill and steps - 1 decode steps) at ``shape`` (batch, prompt)
+    under ``torch.profiler``, after one warm run."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import init_params
+
+    b, s = shape
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0))
+    batch = serve.make_batch(cfg, b, s, DEVICE)
+    cache_len = serve.serve_cache_len(cfg, s, steps)
+    serve.generate(cfg, params, batch, steps, cache_len)
+    profiled(torch, f"lm_{cfg.name}", f"prefill {b}x{s} and {steps - 1} "
+             f"decode steps", lambda: serve.generate(cfg, params, batch,
+                                                     steps, cache_len))
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(torch) -> None:
+    """(a), (b) and (c), with every kernel count 0 just before and read
+    just after: the LM path launches none of K1-K6."""
+    import dataclasses as dc
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.models.lm import torch_dtype
+
+    b, s, gen = LM_SERVE
+    argv = ["--batch", str(b), "--prompt-len", str(s), "--gen", str(gen)]
+    t0 = time.perf_counter()
+    for w in CUDA_WRAPPERS.values():
+        w.launches = 0
+    for arch_id in ARCH_IDS:
+        lm_smoke_parity(torch, arch_id)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch_id in LM_F32_ARCHS:
+        lm_full_f32(torch, dc.replace(get_config(arch_id), dtype="float32"))
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        need = cfg.param_count() * torch_dtype(cfg.dtype).itemsize
+        free = torch.cuda.mem_get_info()[0]
+        log(f"[lm_serve] {arch_id}: {need / 2 ** 30:.2f} GiB of "
+            f"{cfg.dtype} weights against {free / 2 ** 30:.2f} GiB free")
+        if arch_id in LM_TOO_LARGE:
+            require(need > free, f"{arch_id} was expected not to fit")
+            log(f"[lm_serve] {arch_id}: does not fit one card; not run")
+            continue
+        require(need + 2 ** 31 < free, f"{arch_id} does not fit the card")
+        lm_serve_run(torch, arch_id, argv)
+        if arch_id in LM_PROFILED:
+            lm_profile(torch, cfg, (b, s))
+    counts = {name: w.launches for name, w in CUDA_WRAPPERS.items()}
+    require(not any(counts.values()),
+            f"the LM path launched GNN kernels: {counts}")
+    log(f"[lm_serve] launches on the path: {json.dumps(counts)}; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def _sums(cases: list) -> dict:
     """Times summed over the cases the main path runs; ``library_ms`` is
     null where no single PyTorch call computes the same function."""
@@ -2718,6 +3002,7 @@ def main() -> int:
     phase_rgcn_untyped(torch)
     phase_link_prediction(torch, launches, extra)
     phase_offline(torch, launches, extra)
+    phase_lm_serve(torch)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]

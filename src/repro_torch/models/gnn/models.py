@@ -132,14 +132,20 @@ def params_to(tree: Any, device) -> Any:
 
 
 def params_from_numpy(tree: Any, device="cpu") -> Any:
-    """The reference's ``init_gnn`` parameters, as numpy arrays (or
-    anything ``np.asarray`` takes), -> the port's tree of tensors on
-    ``device``, bytes unchanged."""
+    """The reference's parameters (``init_gnn``'s or the LM
+    ``init_params``'), as numpy arrays (or anything ``np.asarray`` takes),
+    -> the port's tree of tensors on ``device``, bytes unchanged. bfloat16
+    arrays (``ml_dtypes.bfloat16``, which torch cannot take) travel as
+    their 16-bit patterns."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.tensor(np.asarray(tree), device=device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.uint16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def apply_gnn_layer(cfg: GNNConfig, params: dict, layer: int,

@@ -41,7 +41,8 @@ def test_port_imports_with_jax_unimportable():
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
         "from repro_torch import InferenceServer\n"
-        "from repro_torch.launch import gnn_serve, train\n"
+        "from repro_torch.launch import gnn_serve, serve, train\n"
+        "import repro_torch.models.lm\n"
         "from repro_torch import DistGNNTrainer, NodeDataLoader\n"
         "import repro_torch.configs, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.optim, repro_torch.training\n"
@@ -51,6 +52,7 @@ def test_port_imports_with_jax_unimportable():
         "assert DistGNNTrainer.__module__ == 'repro_torch.training.trainer'\n"
         "gnn_serve.build_parser().parse_args(['--device', 'cpu'])\n"
         "train.build_parser().parse_args(['--arch', 'gat'])\n"
+        "serve.build_parser().parse_args(['--arch', 'llama3-8b'])\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

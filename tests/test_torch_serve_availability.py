@@ -307,7 +307,22 @@ def test_owner_outage_trains_through_byte_identical_nc_homo():
     """Replication 2 with owner 2 of 3 down from (epoch 1, batch 2): the
     GraphSAGE run trains through with no restart and ends with the clean
     unreplicated run's bytes; the outage's counters are the reference's
-    in the same run."""
+    in the same run.
+
+    Both outage runs take the synchronous pipeline (``sync=True``): with
+    the async one, each loader's CPU-prefetch thread pulls a batch's
+    features while the injector's batch clock may or may not have entered
+    the window yet, and a prefetch of the batch past the last can still be
+    retrying against owner 2 when the counters are read. The reads served
+    by owner 2's copy (``failovers``) then vary from run to run: in 18
+    async runs per side, 12 at a time, the reference counted 1, 2 or 3
+    (2, 12 and 4 runs) and the port 0, 1, 2 or 3 (1, 1, 15 and 1 runs),
+    with 4 owner-down hits and failures in all 36. The pipeline, KVStore,
+    cache, transport and injector are the reference's code, so both sides
+    share the race. Inline, every pull runs after its batch's
+    ``check_death``: 12 sync runs per side, 12 at a time, all counted
+    failovers at batches (1, 2) and (1, 3), 2 in all. The clean run stays
+    async, and the bytes are the same either way."""
     ds = get_dataset("product-sim", scale=10)
     cfg = GNNConfig(arch="graphsage", in_dim=ds.feats.shape[1],
                     hidden_dim=16, num_classes=ds.num_classes,
@@ -331,7 +346,8 @@ def test_owner_outage_trains_through_byte_identical_nc_homo():
 
     inj = FaultInjector(seed=11, owner_down=window(OwnerDownWindow))
     tr = DistGNNTrainer(ds, cfg, job(TrainJobConfig, CacheConfig,
-                                     replication=2, fault_injector=inj),
+                                     replication=2, fault_injector=inj,
+                                     sync=True),
                         device="cpu")
     for e in range(EPOCHS):
         tr.train_epoch(e)
@@ -348,7 +364,7 @@ def test_owner_outage_trains_through_byte_identical_nc_homo():
                      fanouts=[3, 2], batch_size=8)
     rinj = RefFaultInjector(seed=11, owner_down=window(RefDownWindow))
     ref = RefTrainer(rds, rcfg, job(RefJob, RefCacheConfig, replication=2,
-                                    fault_injector=rinj))
+                                    fault_injector=rinj, sync=True))
     for e in range(EPOCHS):
         ref.train_epoch(e)
     assert got == _outage_counts(ref, rinj)
