@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about ten minutes
+    python3 chip_smoke.py            # one card; about 15 minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -195,8 +195,9 @@ Phases, each of which exits non-zero when it fails:
                of the full forward's last positions (with tied
                embeddings, times max|logit| / 4 above 4); (c)
                ``launch.serve`` at full width in bfloat16, greedy, batch
-               4, prompt 64, 32 tokens, for every id whose weights fit the
-               card (all but qwen3-moe-235b-a22b's 470 GB), twice: the
+               4, prompt 64, 16 tokens, for every id whose weights fit the
+               card (all but qwen3-moe-235b-a22b's 470 GB; qwen3-32b
+               is left out for time, see ``LM_SERVE_LEFT_OUT``), twice: the
                same tokens and logits bit for bit, and every step of the
                first run against ``forward`` over the prompt and the
                generated tokens within the id's ``LM_BF16_BOUND_U``;
@@ -205,7 +206,38 @@ Phases, each of which exits non-zero when it fails:
                before the next; llama3-8b and granite-moe-3b-a800m's
                prefill and 7 decode steps once more under
                ``torch.profiler`` (the card's busy share, its kernels).
-14. report  -- a JSON line of every ported kernel (its times summed over
+14. lm_train -- the LM training path (``repro_torch.models.lm.steps``,
+               ``repro_torch.data``, ``launch.train``'s LM branch),
+               counted: K2 sums the gradient of the token embedding and of
+               each MoE layer's dispatch gather, over the token ids in a
+               fixed order. (a) each of the ten LM ids at
+               ``smoke_variant`` width in float32, parameters drawn on the
+               CPU and copied to the card, 3 steps of
+               ``make_train_step`` on 2 x 24 tokens of the launcher's
+               stream on the card and on the CPU: per-step loss, ce, aux
+               and grad_norm within rtol 1e-4, atol 1e-5, the step-1
+               gradients leaf by leaf within 1e-4 x the leaf's max |g| +
+               1e-5; qwen2-0.5b once more at 4 microbatches; (b)
+               ``launch.train`` at full width in bfloat16 (remat as
+               configured) for qwen2-0.5b, whisper-base, mamba2-2.7b and
+               granite-moe-3b-a800m, 20 steps of 4 x 256 tokens: the loss
+               finite, the mean of steps 16-20 below that of steps 1-5;
+               ms a step, tok/s, MFU (8 N_active D, 6 without remat, over
+               989 TFLOP/s) beside the analytic bound, peak memory; (c)
+               llama3-8b, qwen3-8b, qwen3-32b, pixtral-12b, zamba2-7b and
+               qwen3-moe-235b-a22b at their published widths, 3 steps,
+               ``num_layers`` cut until 12 bytes a parameter fit 48 GB
+               (printed); (d) two 3-step runs of qwen2-0.5b and
+               granite-moe-3b-a800m end with bitwise-equal parameters,
+               and one bfloat16 step of qwen2-0.5b against the float32
+               step from the same parameters (loss and grad_norm in units
+               of u = 2^-8); then for those two ids one staged step's K2
+               launches, its split (loss and gradients; clipping and
+               AdamW) and the step under ``torch.profiler``; and K2 at
+               those steps' shapes (bfloat16 rows of the model width keyed
+               by the tokens, and for MoE every token once for each of its
+               k experts) against its plain version, as phase 4.
+15. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
@@ -283,7 +315,8 @@ KERNELS = {
         replaces=K2, paths=("serving", "train_graphsage", "train_recover",
                             "serving_rgcn", "train_rgcn", "recover_rgcn",
                             "train_lp", "train_lp_rgcn", "recover_lp",
-                            "offline_graphsage", "offline_rgcn")),
+                            "offline_graphsage", "offline_rgcn",
+                            "lm_train")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("train_gat", "train_lp_gat")),
@@ -353,8 +386,15 @@ OFFLINE_CHECK_NODES = 16
 # tests/test_lm_archs.py
 LM_SMOKE = (2, 24, 4)
 LM_F32_ARCHS, LM_F32_SHAPE = ("llama3-8b", "mamba2-2.7b", "zamba2-7b"), (2, 64)
-LM_SERVE = (4, 64, 32)           # batch, prompt, generated tokens
+# batch, prompt, generated tokens (32 until lm_train joined the smoke:
+# 16 keeps the whole inside its time limit)
+LM_SERVE = (4, 64, 16)
 LM_TOO_LARGE = ("qwen3-moe-235b-a22b",)
+# (c) leaves qwen3-32b out to keep the whole smoke inside its time limit
+# once lm_train runs: 61 GB of weights and the slowest decode (about 12 s
+# of the phase); qwen3-8b runs its family (dense, GQA, qk-norm), and
+# lm_train runs qwen3-32b at its published width
+LM_SERVE_LEFT_OUT = ("qwen3-32b",)
 LM_PROFILED = ("llama3-8b", "granite-moe-3b-a800m")
 LM_DECODE_BOUND = 5e-3
 # (c)'s bfloat16 decode against the full forward in units of u = 2^-8:
@@ -364,6 +404,26 @@ LM_DECODE_BOUND = 5e-3
 # zamba2-7b) agree within 7e-5 of max |logit|. Random weights let
 # bfloat16's rounding grow over the depth; mamba2-2.7b's 64 SSM layers
 # take its logits to 240 and its decode to 28% of them on average.
+# the LM training path: (a) smoke width, every id, float32, card vs CPU
+# (batch, sequence, steps; qwen2-0.5b once more at 4 microbatches of 2
+# rows); (b) the launcher at full width in bfloat16 for the ids whose
+# parameters, gradients and float32 moments fit one card whole; (c) the
+# others at their published widths, num_layers cut until 12 bytes a
+# parameter fit LM_CUT_BYTES (a hybrid keeps one super-block); (d) two
+# 3-step launcher runs bitwise equal, and a bfloat16 step against the
+# float32 one in units of u = 2^-8
+LM_TRAIN_SMOKE = (2, 24, 3)
+LM_TRAIN_FULL = ("qwen2-0.5b", "whisper-base", "mamba2-2.7b",
+                 "granite-moe-3b-a800m")
+LM_TRAIN_ARGV = ["--batch-size", "4", "--seq-len", "256", "--steps", "20"]
+LM_TRAIN_CUT = ("llama3-8b", "qwen3-8b", "qwen3-32b", "pixtral-12b",
+                "zamba2-7b", "qwen3-moe-235b-a22b")
+LM_CUT_BYTES = 48e9
+LM_TRAIN_PROFILED = ("qwen2-0.5b", "granite-moe-3b-a800m")
+BF16_OPS_PER_S = 989e12    # H100 SXM dense bfloat16, published
+# (loss, grad_norm) of one bfloat16 step against float32: 1.5 times what
+# an H100 showed (0.091 u and 0.436 u), rounded up
+LM_BF16_STEP_BOUND_U = (0.2, 0.7)
 LM_BF16_BOUND_U = {"zamba2-7b": (57, 48), "qwen3-32b": (22, 20),
                    "llama3-8b": (15, 13), "whisper-base": (3.3, 2.8),
                    "mamba2-2.7b": (155, 110),
@@ -2854,6 +2914,9 @@ def phase_lm_serve(torch) -> None:
         free = torch.cuda.mem_get_info()[0]
         log(f"[lm_serve] {arch_id}: {need / 2 ** 30:.2f} GiB of "
             f"{cfg.dtype} weights against {free / 2 ** 30:.2f} GiB free")
+        if arch_id in LM_SERVE_LEFT_OUT:
+            log(f"[lm_serve] {arch_id}: left out of (c) for time")
+            continue
         if arch_id in LM_TOO_LARGE:
             require(need > free, f"{arch_id} was expected not to fit")
             log(f"[lm_serve] {arch_id}: does not fit one card; not run")
@@ -2867,6 +2930,303 @@ def phase_lm_serve(torch) -> None:
             f"the LM path launched GNN kernels: {counts}")
     log(f"[lm_serve] launches on the path: {json.dumps(counts)}; phase "
         f"{time.perf_counter() - t0:.2f} s")
+
+
+def _lm_batches(torch, cfg, b, s, n, device, seed=0) -> list:
+    """``n`` batches of the launcher's token stream (seed 0) on
+    ``device``."""
+    from repro_torch.data import TokenStream
+
+    stream = TokenStream(vocab=cfg.vocab_size, batch=b, seq=s, seed=seed,
+                         cfg=cfg, device=device, sync=True)
+    try:
+        return [next(stream) for _ in range(n)]
+    finally:
+        stream.stop()
+
+
+def lm_train_smoke_parity(torch, arch_id, microbatches=1) -> None:
+    """(a): one id at smoke width in float32, 3 steps on the card against
+    the same steps on the CPU from the same parameters; the step-1
+    gradients leaf by leaf."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.lm import init_train_state, make_train_step
+    from repro_torch.models.lm.steps import loss_and_grads
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = smoke_variant(get_config(arch_id))
+    b, s, n = LM_TRAIN_SMOKE
+    b *= microbatches
+    params, opt = init_train_state(cfg, seed=0, device="cpu")
+
+    def to(tree, device):      # a copy: the step updates in place
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+
+    def state_to(st, device):
+        return AdamWState(st.step.to(device), to(st.mu, device),
+                          to(st.nu, device))
+    batches = _lm_batches(torch, cfg, b, s, n, "cpu")
+    runs = {}
+    for device in ("cpu", DEVICE):
+        p, o = to(params, device), state_to(opt, device)
+        bs = [to(x, device) for x in batches]
+        _, g = loss_and_grads(cfg, p, bs[0])
+        step = make_train_step(cfg, microbatches=microbatches)
+        mets = []
+        for x in bs:
+            p, o, m = step(p, o, x)
+            mets.append({k: float(v) for k, v in m.items()})
+        runs[device] = (g, mets, p)
+    worst = 0.0
+    for a, c in zip(tree_leaves(runs[DEVICE][0]), tree_leaves(runs["cpu"][0])):
+        atol = 1e-4 * float(c.abs().max()) + 1e-5
+        err = max_err(torch, a.cpu(), c)
+        require(err <= atol, f"lm_train {arch_id}: step-1 gradient on the "
+                             f"card {err:.3e} from the CPU's (atol {atol:.3e})")
+        worst = max(worst, err / atol)
+    for i, (mc, mg) in enumerate(zip(runs["cpu"][1], runs[DEVICE][1])):
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            require(abs(mg[k] - mc[k]) <= 1e-5 + 1e-4 * abs(mc[k]),
+                    f"lm_train {arch_id} step {i + 1}: {k} {mg[k]!r} on the "
+                    f"card against {mc[k]!r} on the CPU")
+    log(f"[lm_train] {arch_id} smoke width ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {microbatches} microbatch(es)): {n} steps of "
+        f"{b}x{s}, card vs CPU: losses "
+        f"{[round(m['loss'], 6) for m in runs[DEVICE][1]]} (CPU "
+        f"{[round(m['loss'], 6) for m in runs['cpu'][1]]}), step-1 "
+        f"gradients within {worst:.3f} of the bound")
+
+
+def _lm_cut(cfg):
+    """``cfg`` with ``num_layers`` cut until 12 bytes a parameter fit
+    ``LM_CUT_BYTES`` (a hybrid keeps whole super-blocks, at least one)."""
+    step = cfg.hybrid_attn_every or 1
+    layers = cfg.num_layers
+    while layers > step and dataclasses.replace(
+            cfg, num_layers=layers).param_count() * 12 > LM_CUT_BYTES:
+        layers -= step
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def lm_train_run(torch, arch_id, argv, cfg=None) -> dict:
+    """(b) and (c): ``launch.train``'s ``run_lm`` on one id (on ``cfg``
+    when given: the launcher's config with its depth cut), with the
+    checks of (b); returns its summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+
+    args = train_cli.build_parser().parse_args(
+        ["--arch", arch_id, "--device", DEVICE, *argv])
+    full = get_config(arch_id)
+    cfg = cfg or full
+    t0 = time.perf_counter()
+    out = train_cli.run_lm(args, cfg=cfg)
+    wall = time.perf_counter() - t0
+    loss = out["loss"]
+    require(all(np.isfinite(loss)), f"lm_train {arch_id}: loss not finite")
+    tokens = args.batch_size * args.seq_len
+    if cfg.arch_type == "vlm":
+        tokens += args.batch_size * cfg.num_image_tokens
+    n_act = cfg.active_param_count()
+    factor = 8 if cfg.remat else 6
+    step_s = out["ms_per_step"] / 1e3
+    mfu = factor * n_act * tokens / step_s / BF16_OPS_PER_S
+    compute_ms = factor * n_act * tokens / BF16_OPS_PER_S * 1e3
+    memory_ms = 22 * cfg.param_count() / HBM_BYTES_PER_S * 1e3
+    cut = "" if cfg is full else (f" (num_layers cut from "
+                                  f"{full.num_layers} to {cfg.num_layers})")
+    peak = ("not measured" if out["peak_gib"] is None
+            else f"{out['peak_gib']:.2f} GiB")
+    log(f"[lm_train] {arch_id}{cut}: {args.steps} steps of "
+        f"{args.batch_size}x{args.seq_len} in {cfg.dtype}, remat "
+        f"{cfg.remat}, N {cfg.param_count() / 1e9:.3f} B (active "
+        f"{n_act / 1e9:.3f} B): {out['ms_per_step']:.3f} ms a step, "
+        f"{out['tok_s']:.1f} tok/s, MFU {100 * mfu:.3f}% ({factor} N_active "
+        f"x {tokens} tokens against {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; "
+        f"bound {max(compute_ms, memory_ms):.3f} ms: compute "
+        f"{compute_ms:.3f}, memory {memory_ms:.3f}), peak "
+        f"{peak}; losses "
+        f"{[round(x, 4) for x in loss]}; {wall:.2f} s")
+    return out
+
+
+def lm_bf16_step(torch) -> None:
+    """(d): one bfloat16 step of qwen2-0.5b at (b)'s shape against the
+    float32 step from the same parameters (the float32 ones rounded):
+    loss and grad_norm in units of u = 2^-8 of the float32 values."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_train_state, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.optimizers import tree_map
+
+    cfg = get_config("qwen2-0.5b")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params, opt = init_train_state(cfg, seed=0, device=DEVICE)
+    batch = _lm_batches(torch, cfg, 4, 256, 1, DEVICE)[0]
+    p32 = tree_map(lambda t: t.float(), params)
+    _, _, m16 = make_train_step(cfg)(params, opt, batch)
+    del params, opt
+    _, _, m32 = make_train_step(f32)(p32, adamw_init(p32), batch)
+    u = 2.0 ** -8
+    du = [abs(float(m16[k]) - float(m32[k])) / abs(float(m32[k])) / u
+          for k in ("loss", "grad_norm")]
+    log(f"[lm_train] qwen2-0.5b one step in bfloat16 against float32 from "
+        f"the same parameters: loss {float(m16['loss']):.6f} / "
+        f"{float(m32['loss']):.6f} ({du[0]:.3f} u), grad_norm "
+        f"{float(m16['grad_norm']):.6f} / {float(m32['grad_norm']):.6f} "
+        f"({du[1]:.3f} u; bound {LM_BF16_STEP_BOUND_U} u)")
+    require(du[0] <= LM_BF16_STEP_BOUND_U[0]
+            and du[1] <= LM_BF16_STEP_BOUND_U[1],
+            f"lm_train qwen2-0.5b: bfloat16 step departs from float32 by "
+            f"{du} u")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def lm_train_profile(torch, arch_id) -> list:
+    """One staged training step of ``arch_id`` at (b)'s shape: its K2
+    launches, its split (loss and gradients; clipping and AdamW) and,
+    once more, under ``torch.profiler``. Returns the K2 keys of the step's
+    launches as (label, keys, num_groups, width) in launch order."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.models.lm import init_train_state, make_train_step
+    from repro_torch.models.lm.steps import adamw_update_, loss_and_grads
+    from repro_torch.optim.optimizers import (clip_scale, global_norm,
+                                              tree_leaves)
+
+    cfg = get_config(arch_id)
+    params, opt = init_train_state(cfg, seed=0, device=DEVICE)
+    batch = _lm_batches(torch, cfg, 4, 256, 1, DEVICE)[0]
+    step = make_train_step(cfg)
+    params, opt, _ = step(params, opt, batch)          # warm
+    before = {n: w.launches for n, w in CUDA_WRAPPERS.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gn = global_norm(grads)
+    leaves = tree_leaves(grads)
+    del grads
+    opt = adamw_update_(params, leaves, opt, clip_scale(gn, 1.0), lr=3e-4,
+                        weight_decay=0.1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {n: w.launches - before[n] for n, w in CUDA_WRAPPERS.items()
+              if w.launches > before[n]}
+    log(f"[profile] lm_train_{arch_id}: launches in one step: "
+        f"{json.dumps(counts)}; loss and gradients "
+        f"{(t1 - t0) * 1e3:.3f} ms, clipping and AdamW "
+        f"{(t2 - t1) * 1e3:.3f} ms")
+    profiled(torch, f"lm_train_{arch_id}", "one step (batch staged)",
+             lambda: step(params, opt, batch))
+    tokens = batch["tokens"].reshape(-1)
+    keys = [("embedding", tokens, cfg.padded_vocab, cfg.d_model)]
+    if cfg.arch_type == "moe":
+        # the dispatch gathers each token once for each of its k experts:
+        # every token id k times, in expert order (here a seeded order)
+        t, k = tokens.numel(), cfg.experts_per_tok
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        moe = torch.arange(t, device=DEVICE).repeat_interleave(k)[
+            torch.randperm(t * k, generator=gen, device=DEVICE)]
+        keys += [("moe dispatch", moe, t, cfg.d_model)] * cfg.num_layers
+    require(counts.get("segment_sum", 0) == len(keys),
+            f"lm_train {arch_id}: K2 launched {counts} in one step, "
+            f"expected {len(keys)}")
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return keys
+
+
+def lm_train_k2_cases(torch, arch_id, keys) -> list:
+    """K2 at one LM step's shapes, one case a launch in launch order (a
+    repeated launch timed once): bfloat16 gradient rows of the model
+    width from a seeded generator, keyed as the step keys them."""
+    from repro_torch.kernels import edge_groups
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    timed, cases = {}, []
+    for label, idx, groups_n, width in keys:
+        name = (label, id(idx))
+        if name not in timed:
+            flat_keys = idx.to(torch.int32)
+            live = torch.ones_like(flat_keys, dtype=torch.bool)
+            grad = torch.randn((flat_keys.numel(), width), generator=gen,
+                               device=DEVICE).to(torch.bfloat16)
+            out = []
+            k2_case(torch, f"lm {arch_id} {label}", grad,
+                    {"edge_dst": flat_keys, "edge_mask": live}, groups_n,
+                    edge_groups(flat_keys, live, groups_n), out, 0.1, 0.5)
+            timed[name] = out[0]
+        cases.append(timed[name])
+    return cases
+
+
+def lm_train_paths(torch) -> dict:
+    """(a)-(d) and the profiles; returns the profiled steps' K2 keys."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.optim.optimizers import tree_leaves
+
+    marks = [("start", time.perf_counter())]
+    for arch_id in ARCH_IDS:
+        lm_train_smoke_parity(torch, arch_id)
+    lm_train_smoke_parity(torch, "qwen2-0.5b", microbatches=4)
+    marks.append(("(a)", time.perf_counter()))
+    for arch_id in LM_TRAIN_FULL:
+        out = lm_train_run(torch, arch_id, LM_TRAIN_ARGV)
+        loss = out["loss"]
+        require(np.mean(loss[15:20]) < np.mean(loss[:5]),
+                f"lm_train {arch_id}: the loss did not fall "
+                f"({np.mean(loss[:5]):.4f} -> {np.mean(loss[15:20]):.4f})")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    marks.append(("(b)", time.perf_counter()))
+    for arch_id in LM_TRAIN_CUT:
+        cfg = _lm_cut(get_config(arch_id))
+        argv = LM_TRAIN_ARGV[:-1] + ["3"]
+        lm_train_run(torch, arch_id, argv, cfg=cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+    marks.append(("(c)", time.perf_counter()))
+    for arch_id in LM_TRAIN_PROFILED:
+        runs = []
+        for _ in range(2):
+            out = lm_train_run(torch, arch_id, LM_TRAIN_ARGV[:-1] + ["3"])
+            runs.append(tree_leaves(out.pop("params")))
+            del out
+        require(all(torch.equal(a, b) for a, b in zip(*runs)),
+                f"lm_train {arch_id}: two 3-step runs end with other bits")
+        log(f"[lm_train] {arch_id}: two 3-step runs end with bitwise-equal "
+            f"parameters ({len(runs[0])} leaves)")
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    lm_bf16_step(torch)
+    marks.append(("(d)", time.perf_counter()))
+    keys = {arch_id: lm_train_profile(torch, arch_id)
+            for arch_id in LM_TRAIN_PROFILED}
+    marks.append(("profiles", time.perf_counter()))
+    log("[lm_train] seconds: " + ", ".join(
+        f"{name} {t - marks[i][1]:.2f}"
+        for i, (name, t) in enumerate(marks[1:])))
+    return keys
+
+
+def phase_lm_train(torch, launches: dict, extra: dict) -> None:
+    """The LM training path, counted (K2 sums the token embedding's and
+    the MoE dispatch's gradients), then K2 at its profiled steps'
+    shapes."""
+    t0 = time.perf_counter()
+    keys, launches["lm_train"] = counted("lm_train",
+                                         lambda: lm_train_paths(torch))
+    for arch_id, k in keys.items():
+        extra[f"lm_train_{arch_id}_step"] = {
+            "segment_sum": lm_train_k2_cases(torch, arch_id, k)}
+    log(f"[lm_train] phase {time.perf_counter() - t0:.2f} s")
 
 
 def _sums(cases: list) -> dict:
@@ -3003,6 +3363,7 @@ def main() -> int:
     phase_link_prediction(torch, launches, extra)
     phase_offline(torch, launches, extra)
     phase_lm_serve(torch)
+    phase_lm_train(torch, launches, extra)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]

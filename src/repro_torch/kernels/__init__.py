@@ -29,8 +29,8 @@ from .fused_gather_aggregate import (FusedGatherAggregate,
                                      fused_gather_aggregate_ref)
 from .gather import gather_rows, gather_rows_cuda, gather_rows_ref
 from .pack import PackSpec, PackedBatch, device_stage, pack, unpack
-from .segment_sum import (gather_edges, segment_sum, segment_sum_cuda,
-                          segment_sum_ref)
+from .segment_sum import (gather_edges, keyed_rows, segment_sum,
+                          segment_sum_cuda, segment_sum_ref)
 from .sparse_adam import (StagingArena, sparse_adam_apply, sparse_adam_cuda,
                           sparse_adam_ref, sparse_adam_staged)
 from .src_scatter import src_scatter_cuda, src_scatter_ref
@@ -48,7 +48,7 @@ __all__ = ["EdgeGroups", "dst_groups", "edge_groups", "src_groups",
            "gather_rows", "gather_rows_cuda", "gather_rows_ref",
            "StagingArena", "sparse_adam_apply", "sparse_adam_cuda",
            "sparse_adam_ref", "sparse_adam_staged",
-           "gather_edges", "segment_sum", "segment_sum_cuda",
+           "gather_edges", "keyed_rows", "segment_sum", "segment_sum_cuda",
            "segment_sum_ref", "src_scatter_cuda", "src_scatter_ref",
            "PackSpec", "PackedBatch", "device_stage", "pack", "unpack",
            "CUDA_WRAPPERS"]

@@ -213,17 +213,31 @@ class PackedBatch:
     def total_bytes(self) -> int:
         return self.spec.total_bytes()
 
+    def to(self, device) -> "PackedBatch":
+        """The batch staged on ``device`` with ONE ``non_blocking`` copy of
+        the host arena; on the CPU the host arena is the staged arena."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return PackedBatch(self.spec, self.host, self.host)
+        return PackedBatch(self.spec,
+                           self.host.to(device, non_blocking=True),
+                           self.host)
+
+
+def host_stage(tree: Any, pin: bool) -> PackedBatch:
+    """Pack ``tree`` into a host arena, in pinned memory when ``pin``; the
+    batch's arena is that host arena until :meth:`PackedBatch.to`."""
+    flat, none_paths = flatten_tree(tree)
+    spec = _spec_of(flat, none_paths)
+    host = torch.empty(spec.total_bytes(), dtype=torch.uint8,
+                       pin_memory=pin)
+    _fill(spec, flat, host.numpy())
+    return PackedBatch(spec, host, host)
+
 
 def device_stage(tree: Any, device) -> PackedBatch:
     """Pack ``tree`` into a host arena (pinned when ``device`` is a card)
     and stage it with ONE ``non_blocking`` copy; on the CPU the host arena
     is the staged arena."""
     device = torch.device(device)
-    flat, none_paths = flatten_tree(tree)
-    spec = _spec_of(flat, none_paths)
-    on_card = device.type == "cuda"
-    host = torch.empty(spec.total_bytes(), dtype=torch.uint8,
-                       pin_memory=on_card)
-    _fill(spec, flat, host.numpy())
-    arena = host.to(device, non_blocking=True) if on_card else host
-    return PackedBatch(spec, arena, host)
+    return host_stage(tree, pin=device.type == "cuda").to(device)

@@ -1,7 +1,8 @@
-"""Training launcher (the port of ``repro/launch/train.py``'s GNN branch).
+"""Training launcher (the port of ``repro/launch/train.py``), on the card
+unless ``--device cpu`` is given.
 
-Synchronous mini-batch node classification or link prediction over a
-partitioned graph, on the card unless ``--device cpu`` is given:
+GNN archs (graphsage, gat, rgcn): synchronous mini-batch node
+classification or link prediction over a partitioned graph:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat \
         --dataset product-sim --machines 2 --trainers-per-machine 2 \
@@ -39,8 +40,13 @@ MRR and Hits@10 over held-out candidates::
         --dataset mag-hetero --hetero --task link_prediction \
         --score-fn distmult --neg-exclude --epochs 1
 
-The LM stack is not ported yet: its archs raise ``NotImplementedError``
-naming their ROADMAP item.
+An LM arch id trains ``--steps`` steps of ``make_train_step`` on the
+synthetic token stream (``--batch-size`` sequences of ``--seq-len``
+tokens, AdamW at ``--lr``); ``--smoke`` takes the reduced same-family
+config::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
+        --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
 
@@ -49,13 +55,6 @@ import dataclasses
 import json
 import os
 import time
-
-
-def _refuse_unported(args) -> None:
-    if args.arch not in ("graphsage", "gat", "rgcn"):
-        raise NotImplementedError(f"arch {args.arch!r}: the LM stack is not "
-                                  f"ported to repro_torch yet: ROADMAP "
-                                  f"queue A item 10")
 
 
 def _kill_at(args):
@@ -98,7 +97,6 @@ def build_trainer(args):
     from ..core.kvstore import CacheConfig, NetworkModel
     from ..graph import get_dataset
 
-    _refuse_unported(args)
     kill_at = _kill_at(args)
     if (kill_at or args.recover or args.checkpoint_interval) \
             and not args.checkpoint_dir:
@@ -239,11 +237,64 @@ def run_gnn(args, trainer=None) -> dict:
     return out
 
 
+def run_lm(args, cfg=None) -> dict:
+    """Train an LM arch id (on ``cfg`` when given, else the id's config or
+    with ``--smoke`` its reduced variant) for ``args.steps`` steps,
+    printing the reference's ``[step i]`` lines every ``steps // 10``
+    steps and its ``[done]`` line -> {"loss", "ce", "grad_norm": one float
+    a step, "tok_s", "ms_per_step", "peak_gib" (the card's peak allocated
+    memory, None on the CPU), "params": the trained parameters}."""
+    import torch
+
+    from ..configs import get_config, smoke_variant
+    from ..data import TokenStream
+    from ..models.lm import init_train_state, make_train_step
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA card is available "
+                           "(--device cpu runs on the CPU)")
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = smoke_variant(cfg)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step = make_train_step(cfg, lr=args.lr)
+    params, opt = init_train_state(cfg, seed=0, device=device)
+    stream = TokenStream(vocab=cfg.vocab_size, batch=args.batch_size,
+                         seq=args.seq_len, seed=0, cfg=cfg, device=device)
+    metrics = []
+    t0 = time.time()
+    try:
+        for i, batch in enumerate(stream):
+            if i >= args.steps:
+                break
+            params, opt, m = step(params, opt, batch)
+            metrics.append(m)
+            if (i + 1) % max(args.steps // 10, 1) == 0:
+                print(f"[step {i+1}] loss={float(m['loss']):.4f} "
+                      f"ce={float(m['ce']):.4f} "
+                      f"gnorm={float(m['grad_norm']):.2f}", flush=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.time() - t0
+    finally:
+        stream.stop()
+    toks = args.steps * args.batch_size * args.seq_len
+    print(f"[done] {args.steps} steps, {toks/dt:.0f} tok/s", flush=True)
+    out = {k: [float(m[k]) for m in metrics]
+           for k in ("loss", "ce", "grad_norm")}
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    return dict(out, tok_s=toks / dt, ms_per_step=dt * 1e3 / args.steps,
+                peak_gib=peak, params=params)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", required=True,
-                    help="model: graphsage|gat|rgcn (the LM archs are not "
-                         "ported yet)")
+                    help="model: graphsage|gat|rgcn or an LM arch id")
     ap.add_argument("--dataset", default="product-sim",
                     help="named synthetic dataset "
                          "(repro_torch.graph.datasets)")
@@ -257,10 +308,17 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["metis", "random"],
                     help="graph partitioner (random = Euler baseline)")
     ap.add_argument("--epochs", type=int, default=3,
-                    help="training epochs")
+                    help="GNN training epochs")
+    ap.add_argument("--steps", type=int, default=20,
+                    help="LM training steps")
     ap.add_argument("--batch-size", type=int, default=8,
-                    help="seeds (link prediction: positive edges) per batch "
-                         "per trainer (capped at the config's batch)")
+                    help="GNN: seeds (link prediction: positive edges) per "
+                         "batch per trainer (capped at the config's batch); "
+                         "LM: sequences per step")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM sequence length")
+    ap.add_argument("--lr", type=float, default=3e-4,
+                    help="LM learning rate")
     ap.add_argument("--task", default="node_classification",
                     choices=["node_classification", "link_prediction"],
                     help="GNN workload: node classification or edge "
@@ -324,6 +382,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hedged reads: race a replica after this many ms "
                          "without a primary response (needs "
                          "--replication >= 2; default off)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: reduced same-family config for CPU smoke runs")
     ap.add_argument("--sync", action="store_true",
                     help="disable the async pipeline (unpipelined baseline)")
     ap.add_argument("--no-nonstop", action="store_true",
@@ -337,8 +397,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    summary = run_gnn(build_parser().parse_args(argv))
-    summary.pop("trainer")
+    from ..configs import GNN_ARCHS
+
+    args = build_parser().parse_args(argv)
+    if args.arch in GNN_ARCHS:
+        summary = run_gnn(args)
+        summary.pop("trainer")
+    else:
+        summary = run_lm(args)
+        summary.pop("params")
     return summary
 
 

@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.sampler.mfg import Fanout, capacities, relation_capacities
-from ...kernels import edge_groups, gather_edges
-from ...kernels.impl import resolve_impl
+from ...kernels import keyed_rows
 from .layers import _dense, gat_layer, rgcn_layer, sage_layer
 
 ARCHS = ("graphsage", "gat", "rgcn")
@@ -244,24 +243,6 @@ def init_lp_head(score_fn: str, num_rels: int, emb_dim: int,
     raise ValueError(f"unknown score_fn {score_fn!r}; have {LP_SCORE_FNS}")
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor, impl: str) -> torch.Tensor:
-    """``x[idx]`` for an index tensor of any shape -> idx.shape + (F,).
-    The head's indices repeat (in-batch negatives, one relation row for a
-    whole typed batch), so on the card a gradient is summed by K2 over the
-    indices grouped in their order (:func:`gather_edges`), not by the
-    float atomics of ``index_select``'s backward; on the CPU, and without
-    a gradient, ``index_select``."""
-    flat = idx.reshape(-1).to(torch.int32)
-    if (resolve_impl(impl, x) == "cuda" and torch.is_grad_enabled()
-            and x.requires_grad):
-        live = torch.ones_like(flat, dtype=torch.bool)
-        rows = gather_edges(x, flat, live,
-                            edge_groups(flat, live, x.shape[0]))
-    else:
-        rows = x.index_select(0, flat.long())
-    return rows.view(*idx.shape, x.shape[-1])
-
-
 def lp_pair_scores(h: torch.Tensor, u_idx: torch.Tensor, v_idx: torch.Tensor,
                    head: Optional[dict] = None, score_fn: str = "dot",
                    etypes: Optional[torch.Tensor] = None,
@@ -281,11 +262,11 @@ def lp_pair_scores(h: torch.Tensor, u_idx: torch.Tensor, v_idx: torch.Tensor,
     s, n, d = h.shape
     flat = h.reshape(s * n, d)
     base = torch.arange(s, device=h.device)[:, None] * n        # (S, 1)
-    hu = _rows(flat, u_idx.long() + base, impl)                  # (S, B, d)
+    hu = keyed_rows(flat, u_idx.long() + base, impl)             # (S, B, d)
     if score_fn == "distmult":
-        hu = hu * _rows(head["rel_emb"], etypes, impl)
+        hu = hu * keyed_rows(head["rel_emb"], etypes, impl)
     vbase = base if v_idx.dim() == 2 else base[:, :, None]
-    hv = _rows(flat, v_idx.long() + vbase, impl)
+    hv = keyed_rows(flat, v_idx.long() + vbase, impl)
     if hv.dim() == hu.dim() + 1:
         out = (hu[:, :, None, :] * hv).sum(-1)                   # (S, B, K)
     else:

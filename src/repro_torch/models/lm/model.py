@@ -4,6 +4,16 @@ architecture family; the port of ``repro.models.lm.model``.
 Parameters keep the reference's tree: each layer stack is one tensor per
 weight with a leading layer axis (hybrid: super-block, then layer), and
 the forward walks that axis in a Python loop where the reference scans.
+It takes the layers with one ``unbind(0)`` a stacked leaf, so that the
+backward stacks each leaf's gradient once (indexing a layer at a time
+would add a zero tensor of the whole stack for every layer). With
+``cfg.remat`` each block runs under ``torch.utils.checkpoint`` where the
+reference wraps it in ``jax.checkpoint``: its activations are recomputed
+in the backward, with the same bits, since the forward draws no random
+numbers. The token embedding is a :func:`~repro_torch.kernels.keyed_rows`
+gather: on the card its gradient is K2 over the token ids in a fixed
+order, not float atomics.
+
 Hybrid (Zamba2-style) models run super-blocks of ``hybrid_attn_every``
 Mamba2 layers, each followed by one *shared-weight* attention+MLP block,
 then the ``tail_blocks`` left over when the depth is not a multiple.
@@ -14,7 +24,9 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ...kernels import keyed_rows
 from ...optim.optimizers import tree_leaves, tree_map
 from .config import LMConfig, torch_dtype
 from .layers import attn_block, mlp_block, rmsnorm
@@ -30,6 +42,19 @@ def layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree: every leaf indexed on its leading
     axis (views, no copy)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack(tree: Any) -> list:
+    """The layers of a stacked tree, every leaf split with one
+    ``unbind(0)`` (views, no copy; the backward stacks once)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v) for v in tree]
+        return [[v[i] for v in parts] for i in range(len(parts[0]))]
+    return list(tree.unbind(0))
 
 
 def num_stacked(tree: Any) -> int:
@@ -219,6 +244,26 @@ def _shared_attn_block(cfg: LMConfig, sp: dict, x, positions, window):
     return h + mlp_block(sp["mlp"], rmsnorm(h, sp["ln_m"], cfg.norm_eps))
 
 
+def _remat(cfg: LMConfig, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward when ``cfg.remat`` (the
+    block's parameters are among ``args``, so their gradients flow)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _audio_decoder_block(cfg: LMConfig, bp: dict, x, positions, window, enc,
+                         enc_pos):
+    x = x + attn_block(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg,
+                       positions=positions, window=window)
+    x = x + attn_block(bp["xattn"], rmsnorm(x, bp["ln_x"], cfg.norm_eps),
+                       cfg, positions=positions, context=enc,
+                       context_positions=enc_pos)
+    return x + mlp_block(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps),
+                         kind="gelu")
+
+
 def lm_head(cfg: LMConfig, params: dict) -> torch.Tensor:
     """(d, padded_vocab): the tied embedding's transpose or ``lm_head``."""
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -226,15 +271,20 @@ def lm_head(cfg: LMConfig, params: dict) -> torch.Tensor:
 
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
-            encoder_embeds: Optional[torch.Tensor] = None) -> tuple:
-    """tokens: (B, S) int64 -> (logits (B, S_total, padded_vocab),
+            encoder_embeds: Optional[torch.Tensor] = None,
+            return_hidden: bool = False) -> tuple:
+    """tokens: (B, S) int -> (logits (B, S_total, padded_vocab),
     aux_loss).
+
+    ``return_hidden=True`` skips the head and returns the final-normed
+    hidden state (B, S_total, d) instead of the logits: the training loss
+    projects it a chunk at a time.
 
     vlm: image_embeds (B, n_img, d) are prepended. audio: encoder_embeds
     (B, S_enc, d) go through the encoder stack, and the decoder
     cross-attends to them."""
     window = cfg.sliding_window
-    x = params["embed"][tokens]
+    x = keyed_rows(params["embed"], tokens)
     if cfg.arch_type == "vlm":
         if image_embeds is None:
             raise ValueError("a vlm forward needs image_embeds")
@@ -244,34 +294,38 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     at = cfg.arch_type
     blocks = params["blocks"]
+
+    def mamba(bp, h):
+        return _mamba_layer(cfg, bp, h)
+
     if at in ("dense", "vlm", "moe"):
-        for i in range(num_stacked(blocks)):
-            x, a = _dense_block(cfg, layer(blocks, i), x, positions, window)
+        def dense(bp, h):
+            return _dense_block(cfg, bp, h, positions, window)
+        for bp in unstack(blocks):
+            x, a = _remat(cfg, dense, bp, x)
             aux_total = aux_total + a
 
     elif at == "ssm":
-        for i in range(num_stacked(blocks)):
-            x = _mamba_layer(cfg, layer(blocks, i), x)
+        for bp in unstack(blocks):
+            x = _remat(cfg, mamba, bp, x)
 
     elif at == "hybrid":
-        for i in range(num_stacked(blocks)):
-            sbp = layer(blocks, i)
-            for j in range(num_stacked(sbp)):
-                x = _mamba_layer(cfg, layer(sbp, j), x)
-            x = _shared_attn_block(cfg, params["shared"], x, positions,
-                                   window)
+        def shared(sp, h):
+            return _shared_attn_block(cfg, sp, h, positions, window)
+        for sbp in unstack(blocks):
+            for bp in unstack(sbp):
+                x = _remat(cfg, mamba, bp, x)
+            x = _remat(cfg, shared, params["shared"], x)
         tail = params.get("tail_blocks")
-        for i in range(num_stacked(tail) if tail is not None else 0):
-            x = _mamba_layer(cfg, layer(tail, i), x)
+        for bp in (unstack(tail) if tail is not None else []):
+            x = _mamba_layer(cfg, bp, x)        # not rematerialised
 
     elif at == "audio":
         if encoder_embeds is None:
             raise ValueError("an audio forward needs encoder_embeds")
         enc = encoder_embeds.to(x.dtype)
         enc_pos = torch.arange(enc.shape[1], device=x.device)
-        eb = params["enc_blocks"]
-        for i in range(num_stacked(eb)):
-            bp = layer(eb, i)
+        for bp in unstack(params["enc_blocks"]):  # not rematerialised
             enc = enc + attn_block(bp["attn"],
                                    rmsnorm(enc, bp["ln1"], cfg.norm_eps),
                                    cfg, positions=enc_pos, causal=False)
@@ -279,19 +333,17 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
                                   rmsnorm(enc, bp["ln2"], cfg.norm_eps),
                                   kind="gelu")
         enc = rmsnorm(enc, params["enc_norm"], cfg.norm_eps)
-        for i in range(num_stacked(blocks)):
-            bp = layer(blocks, i)
-            x = x + attn_block(bp["attn"],
-                               rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg,
-                               positions=positions, window=window)
-            x = x + attn_block(bp["xattn"],
-                               rmsnorm(x, bp["ln_x"], cfg.norm_eps), cfg,
-                               positions=positions, context=enc,
-                               context_positions=enc_pos)
-            x = x + mlp_block(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps),
-                              kind="gelu")
+
+        def decoder(bp, h, enc):
+            return _audio_decoder_block(cfg, bp, h, positions, window, enc,
+                                        enc_pos)
+        for bp in unstack(blocks):
+            x = _remat(cfg, decoder, bp, x, enc)
     else:
         raise ValueError(at)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x @ lm_head(cfg, params), aux_total / max(cfg.num_layers, 1)
+    aux = aux_total / max(cfg.num_layers, 1)
+    if return_hidden:
+        return x, aux
+    return x @ lm_head(cfg, params), aux

@@ -2,12 +2,18 @@
 formulation.
 
 ``_moe_local``: top-k routing -> flatten the (T·k) assignments -> stable
-sort by expert -> one grouped product per non-empty expert over its
-contiguous rows (``jax.lax.ragged_dot``'s groups) -> unsort by a
-permutation write -> weighted combine. No (T, E, C) one-hot dispatch
-tensor is materialized. On one device the reference's ``moe_block`` takes
+sort by expert -> the grouped product (``jax.lax.ragged_dot``'s groups)
+-> unsort by a permutation write -> weighted combine. No (T, E, C)
+one-hot dispatch tensor is materialized. The grouped product writes each
+expert's rows into a bucket of the fullest expert's length and takes one
+batched product over the buckets: three launches a layer, not three an
+expert, and one host sync a layer for the bucket length. On one device the reference's ``moe_block`` takes
 this formulation too; its sharded forms wait for the port of the sharding
 rules.
+
+Each token row is gathered once for each of its k experts
+(:func:`~repro_torch.kernels.keyed_rows`): on the card the gradient of
+that gather is K2 over the token ids in a fixed order, not float atomics.
 
 Aux load-balance loss follows Switch/GShard: E · Σ_e f_e · p_e.
 """
@@ -15,6 +21,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ...kernels import keyed_rows
 
 
 def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
@@ -34,16 +42,24 @@ def _aux_loss(probs: torch.Tensor, top_i: torch.Tensor, e: int):
     return e * torch.sum(frac_tokens * mean_prob)
 
 
-def _grouped(xs: torch.Tensor, w: torch.Tensor, sizes: list) -> torch.Tensor:
-    """``ragged_dot``: rows of group e (contiguous, ``sizes[e]`` of them)
-    times ``w[e]``; groups with no row cost nothing."""
-    out = xs.new_empty((xs.shape[0], w.shape[-1]))
-    start = 0
-    for e, size in enumerate(sizes):
-        if size:
-            out[start:start + size] = xs[start:start + size] @ w[e]
-            start += size
-    return out
+def _buckets(sorted_expert: torch.Tensor, e: int) -> tuple:
+    """Rows sorted by expert -> (their expert, their slot in its bucket,
+    the bucket length: the most rows any expert has)."""
+    counts = torch.bincount(sorted_expert, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = (torch.arange(sorted_expert.numel(), device=counts.device)
+            - starts[sorted_expert])
+    return sorted_expert, slot, int(counts.max())
+
+
+def _grouped(xs: torch.Tensor, w: torch.Tensor, buckets: tuple
+             ) -> torch.Tensor:
+    """``ragged_dot``: each row of ``xs`` (sorted by expert) times its
+    expert's ``w[e]``, as one batched product over zero-padded buckets."""
+    expert, slot, cap = buckets
+    buf = xs.new_zeros((w.shape[0], cap, xs.shape[-1]))
+    buf = buf.index_put((expert, slot), xs)
+    return torch.bmm(buf, w)[expert, slot]
 
 
 def _moe_local(p: dict, x: torch.Tensor, cfg):
@@ -56,12 +72,12 @@ def _moe_local(p: dict, x: torch.Tensor, cfg):
 
     flat_expert = top_i.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
-    xs = xt.index_select(0, order // k)
-    sizes = torch.bincount(flat_expert, minlength=e).tolist()
+    xs = keyed_rows(xt, order // k)
+    buckets = _buckets(flat_expert[order], e)
 
-    h = F.silu(_grouped(xs, p["experts_gate"], sizes))
-    h = h * _grouped(xs, p["experts_up"], sizes)
-    y = _grouped(h, p["experts_down"], sizes)
+    h = F.silu(_grouped(xs, p["experts_gate"], buckets))
+    h = h * _grouped(xs, p["experts_up"], buckets)
+    y = _grouped(h, p["experts_down"], buckets)
 
     y_unsorted = torch.empty_like(y).index_copy_(0, order, y)
     out = torch.einsum("tkd,tk->td", y_unsorted.reshape(t, k, d), top_p)

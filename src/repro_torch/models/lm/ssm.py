@@ -8,7 +8,9 @@ state in float32. Decode is the O(1) recurrent form:
 S <- exp(dt·A)·S + dt·B⊗x, y = C·S.
 
 Scalar-identity A per head, B/C shared across heads (single group), as
-Mamba2's default. The reference's three-operand einsums are written here
+Mamba2's default. The intra-chunk decay matrix masks its exponent, not its
+value (the reference's gradient is NaN once a chunk's decay passes e^88:
+at full width within one 256-step chunk). The reference's three-operand einsums are written here
 as a product and a contraction, so that no (b, q, n, h, p) outer product
 is ever formed whatever path ``torch.einsum`` would pick.
 """
@@ -68,7 +70,12 @@ def ssd_chunked(x, dt, a_log, B, C, D, chunk: int,
         cs = torch.cumsum(dtq.float() * A, dim=1)               # (b,q,h) <0
         # intra-chunk quadratic form
         seg = cs[:, :, None, :] - cs[:, None, :, :]             # (b,t,s,h)
-        Lmat = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        # the reference takes exp of every entry and then zeroes those
+        # above the diagonal; there seg > 0, and past 88 exp is inf, whose
+        # gradient times the zero from where is NaN. Masking seg first to
+        # -inf gives the same values (exp(-inf) = 0) and finite gradients.
+        Lmat = torch.exp(torch.where(tri[None, :, :, None], seg,
+                                     float("-inf")))
         G = torch.einsum("btn,bsn->bts", Cq, Bq)                # (b,t,s)
         xdt = (xq * dtq[..., None]).float()                     # (b,q,h,p)
         y = torch.einsum("btsh,bshp->bthp", G.float()[..., None] * Lmat, xdt)

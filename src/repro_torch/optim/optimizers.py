@@ -1,5 +1,6 @@
-"""Dense AdamW, the port of ``repro/optim/optimizers.py``: plain functions
-on trees (dicts and lists) of tensors.
+"""Dense optimizers, the port of ``repro/optim/optimizers.py``: AdamW,
+global-norm clipping and SGD as plain functions on trees (dicts and lists)
+of tensors.
 
 Dense parameters take the synchronous all-reduce + optimizer path (§5.6).
 The update is the reference's formula, not ``torch.optim.AdamW``'s: an
@@ -76,3 +77,49 @@ def adamw_update(params, grads, state: AdamWState, *, lr: float,
 
     new_params = tree_map(upd, params, mu, nu)
     return new_params, AdamWState(step=step, mu=mu, nu=nu)
+
+
+def _sorted_leaves(tree: Any) -> list:
+    """The leaves in ``jax.tree.leaves``' order: dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _sorted_leaves(v)]
+    return [tree]
+
+
+def global_norm(grads) -> torch.Tensor:
+    """The float32 L2 norm of every leaf, the leaves' squared sums added
+    in the reference's leaf order."""
+    total = 0
+    for g in _sorted_leaves(grads):
+        total = total + torch.sum(g.to(torch.float32) ** 2)
+    return torch.sqrt(total)
+
+
+def clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The float32 factor that takes a global norm ``gn`` to at most
+    ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """-> (grads scaled to a global norm of at most ``max_norm``, the norm
+    before). The scaled leaves are float32 whatever the gradients' type:
+    the reference multiplies by a float32 array, and JAX promotes a
+    bfloat16 gradient to float32 there (torch would keep bfloat16)."""
+    gn = global_norm(grads)
+    scale = clip_scale(gn, max_norm)
+    return tree_map(lambda g: g.to(torch.float32) * scale, grads), gn
+
+
+@torch.no_grad()
+def sgd_update(params, grads, *, lr: float, momentum_state=None,
+               momentum: float = 0.0):
+    """-> (new params, new momentum state); heavy-ball momentum when
+    ``momentum`` and a state are given."""
+    if momentum and momentum_state is not None:
+        momentum_state = tree_map(lambda b, g: momentum * b + g,
+                                  momentum_state, grads)
+        grads = momentum_state
+    return tree_map(lambda p, g: p - lr * g, params, grads), momentum_state

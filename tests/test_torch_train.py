@@ -375,14 +375,26 @@ def test_train_cli_runs_on_cpu_when_asked(capsys):
     assert "[final] val_acc=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "qwen2-0.5b"], "item 10"),
-])
-def test_unported_options_raise_and_name_their_roadmap_item(argv, item):
-    args = train_cli.build_parser().parse_args(
-        ["--arch", "graphsage", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A {item}"):
-        train_cli.build_trainer(args)
+def test_parser_takes_every_lm_flag_of_the_reference():
+    """Every flag of the reference's parser that its help marks as an LM
+    flag parses in the port's, with the reference's default and value."""
+    from repro.launch.train import build_parser as ref_build_parser
+
+    ref = ref_build_parser()
+    lm = [a for a in ref._actions
+          if a.option_strings and "LM" in a.help and not a.required]
+    assert {a.option_strings[0] for a in lm} >= {
+        "--steps", "--batch-size", "--seq-len", "--lr", "--smoke"}
+    port_defaults = vars(train_cli.build_parser().parse_args(
+        ["--arch", "qwen2-0.5b"]))
+    for a in lm:
+        assert port_defaults[a.dest] == a.default, a.dest
+        argv = ["--arch", "qwen2-0.5b", a.option_strings[0]]
+        if a.nargs != 0:
+            argv.append("7")
+        want = vars(ref.parse_args(argv))[a.dest]
+        got = vars(train_cli.build_parser().parse_args(argv))[a.dest]
+        assert got == want and type(got) is type(want), a.dest
 
 
 MAG_RELS = ("cites", "writes", "rev_writes", "employs")
