@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about 15 minutes
+    python3 chip_smoke.py            # one card; about 16 minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -236,8 +236,34 @@ Phases, each of which exits non-zero when it fails:
                AdamW) and the step under ``torch.profiler``; and K2 at
                those steps' shapes (bfloat16 rows of the model width keyed
                by the tokens, and for MoE every token once for each of its
-               k experts) against its plain version, as phase 4.
-15. report  -- a JSON line of every ported kernel (its times summed over
+               k experts) against its plain version, as phase 4 (the library
+               yardstick, ``torch.zeros`` of the output and ``index_add_``
+               in one timed call, as K2 writes all of its output).
+15. lm_sharded -- the sharded path (``repro_torch.sharding``, the
+               sharded MoE dispatches, ``launch.dryrun`` /
+               ``launch.gnn_dryrun``), counted: (a) in subprocesses
+               started first, each on a fake process group of 256 ranks
+               (16 x 16), ``run_one`` for llama3-8b ``train_4k`` under the
+               tp and the pure-FSDP rules, granite-moe-3b-a800m
+               ``train_4k``, qwen3-8b ``decode_32k`` and mamba2-2.7b
+               ``long_500k`` at published widths, one line each (ok,
+               collective bytes by kind, FLOPs a rank, peak GiB a rank
+               against 80 GB: counts from a trace), llama3-8b's FLOPs a
+               rank equal under tp and pure FSDP (each rank's share of
+               every product), and ``gnn_dryrun``'s GraphSAGE, whose
+               all-reduce must be exactly 4 bytes a parameter; (b) on a one-rank NCCL group and a (1, 1)
+               ("data", "model") mesh under the tp rules, qwen2-0.5b's
+               loss, gradients and one step at full width in bfloat16 (4
+               x 256 tokens) through the sharded path bitwise equal to the
+               unsharded ones (K2 launches on the sharded step, printed),
+               and one sharded step of granite-moe-3b-a800m whose every
+               MoE layer takes ``_moe_sharded``; (c) one granite MoE layer
+               at full width (1,024 tokens) at the capacity factor E / k,
+               where nothing drops (the drop count printed, 0 required),
+               ``_moe_sharded`` and ``_moe_sharded_a2a`` against
+               ``_moe_local``: float32 within rtol = atol = 1e-5, bfloat16
+               within ``LM_MOE_BF16_BOUND_U`` u of max |_moe_local|.
+16. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
@@ -266,6 +292,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -316,7 +343,7 @@ KERNELS = {
                             "serving_rgcn", "train_rgcn", "recover_rgcn",
                             "train_lp", "train_lp_rgcn", "recover_lp",
                             "offline_graphsage", "offline_rgcn",
-                            "lm_train")),
+                            "lm_train", "lm_sharded")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
         replaces=K2, paths=("train_gat", "train_lp_gat")),
@@ -429,6 +456,24 @@ LM_BF16_BOUND_U = {"zamba2-7b": (57, 48), "qwen3-32b": (22, 20),
                    "mamba2-2.7b": (155, 110),
                    "granite-moe-3b-a800m": (13, 13), "qwen2-0.5b": (11, 10),
                    "pixtral-12b": (18, 15), "qwen3-8b": (17, 15)}
+
+
+# the sharded path (lm_sharded): the dry-runs on the production mesh (fake
+# worlds of 256 ranks, one subprocess each, all at once), as (id, input
+# shape, rules), and gnn_dryrun's GraphSAGE; then the sharded train step
+# for real on a one-rank NCCL group with a (1, 1) mesh, and the MoE
+# dispatches of one granite-moe-3b-a800m layer against _moe_local
+LM_SHARDED_DRYRUNS = (("llama3-8b", "train_4k", "tp"),
+                      ("llama3-8b", "train_4k", "fsdp"),
+                      ("granite-moe-3b-a800m", "train_4k", "tp"),
+                      ("qwen3-8b", "decode_32k", "tp"),
+                      ("mamba2-2.7b", "long_500k", "tp"))
+LM_SHARDED_BITWISE, LM_SHARDED_MOE = "qwen2-0.5b", "granite-moe-3b-a800m"
+LM_SHARDED_DRYRUN_S = 600
+# the dispatches against _moe_local in bfloat16: max |difference| over max
+# |_moe_local| in units of u = 2^-8 (two bfloat16 products in other
+# orders; float32 is held to rtol = atol = 1e-5)
+LM_MOE_BF16_BOUND_U = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -628,7 +673,11 @@ def require_exact_sum(torch, got, plain, msg, keys, mask, num_groups, what):
                                      f"version's sum in the stable order")
 
 
-def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
+def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol,
+            zero_table=False):
+    """K2 against its plain version, timed. ``zero_table``: the library
+    yardstick zeroes its table in the timed call, as K2 writes all of its
+    output (where the output is a whole table, the LM embedding)."""
     from repro_torch.kernels import segment_sum_cuda, segment_sum_ref
 
     ed, em = block["edge_dst"], block["edge_mask"]
@@ -649,6 +698,12 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
     # edges sent to a spare row
     keys = ed.long().masked_fill(~em, num_dst)
     lib_out = torch.zeros((num_dst + 1, f), dtype=msg.dtype, device=DEVICE)
+
+    def library():
+        if zero_table:
+            return torch.zeros((num_dst + 1, f), dtype=msg.dtype,
+                               device=DEVICE).index_add_(0, keys, msg)
+        return lib_out.index_add_(0, keys, msg)
     # the least the function moves: the mask of every slot, the
     # destination index and message row of every live edge, and the output
     nbytes = e + n_live * (4 + f * isz) + num_dst * f * isz
@@ -659,8 +714,9 @@ def k2_case(torch, label, msg, block, num_dst, groups, results, rtol, atol):
         "kernel_ms": cuda_ms(torch, lambda: segment_sum_cuda(msg, groups)),
         "plain_ms": cuda_ms(torch, lambda: segment_sum_ref(msg, ed, em,
                                                            num_dst)),
-        "library_ms": cuda_ms(torch, lambda: lib_out.index_add_(0, keys,
-                                                                msg)),
+        "library_ms": cuda_ms(torch, library),
+        "library": ("torch.zeros + index_add_" if zero_table
+                    else "index_add_"),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "max_abs_err": max_err(torch, out1, plain),
     }
@@ -3159,7 +3215,8 @@ def lm_train_k2_cases(torch, arch_id, keys) -> list:
             out = []
             k2_case(torch, f"lm {arch_id} {label}", grad,
                     {"edge_dst": flat_keys, "edge_mask": live}, groups_n,
-                    edge_groups(flat_keys, live, groups_n), out, 0.1, 0.5)
+                    edge_groups(flat_keys, live, groups_n), out, 0.1, 0.5,
+                    zero_table=True)
             timed[name] = out[0]
         cases.append(timed[name])
     return cases
@@ -3227,6 +3284,351 @@ def phase_lm_train(torch, launches: dict, extra: dict) -> None:
         extra[f"lm_train_{arch_id}_step"] = {
             "segment_sum": lm_train_k2_cases(torch, arch_id, k)}
     log(f"[lm_train] phase {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# the sharded path: the dry-run, the sharded step on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+_DRYRUN = """
+import json, sys
+from repro_torch.launch.dryrun import run_one, summary
+r = run_one(sys.argv[1], sys.argv[2], parallel=sys.argv[3])
+print(summary(r))
+print(json.dumps(r.to_json()))
+"""
+_GNN_DRYRUN = """
+import json
+from repro_torch.launch.gnn_dryrun import run
+print(json.dumps(run("graphsage")))
+"""
+
+
+def lm_sharded_dryruns_start() -> list:
+    """(a): each dry-run in a subprocess of its own (a fake world of 256
+    ranks is global to its process), all started at once; -> [(label,
+    Popen)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, rules in LM_SHARDED_DRYRUNS:
+        procs.append((f"{arch}|{shape}|{rules}", subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN, arch, shape, rules], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    procs.append(("gnn_dryrun graphsage", subprocess.Popen(
+        [sys.executable, "-c", _GNN_DRYRUN], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def lm_sharded_dryruns_finish(procs: list) -> None:
+    """(a): wait for every dry-run, log its line, hold GraphSAGE's
+    all-reduce to exactly 4 bytes a parameter (the float32 gradients,
+    once each), and llama3-8b's FLOPs a rank under tp to its FLOPs under
+    pure FSDP: each rule set gives a rank 1/256 of every product, so a
+    rank that computed more than its share under tp (a weight's
+    gradient whole on every rank of "model") would differ. Counts from a
+    trace, not measurements."""
+    flops = {}
+    try:
+        for label, proc in procs:
+            out, err = proc.communicate(timeout=LM_SHARDED_DRYRUN_S)
+            require(proc.returncode == 0,
+                    f"lm_sharded dry-run {label} exited "
+                    f"{proc.returncode}: {err[-2000:]}")
+            res = json.loads(out.strip().splitlines()[-1])
+            if label.startswith("gnn_dryrun"):
+                c, n = res["collectives"], res["params"]
+                require(c["all-reduce"] == 4 * n and c["total"] == 4 * n,
+                        f"lm_sharded {label}: all-reduce {c['all-reduce']} "
+                        f"B, total {c['total']} B, for {n} parameters")
+                log(f"[lm_sharded] (a) {label} on {res['mesh']} (apply_gnn "
+                    f"traced with impl='ref'): {n} parameters, all-reduce "
+                    f"{c['all-reduce']} B = 4 B x {n} a step a rank, no "
+                    f"other collective; peak "
+                    f"{res['memory']['peak_bytes'] / 2**30:.3f} GiB a rank "
+                    f"(counts from a trace)")
+                continue
+            require(res["ok"], f"lm_sharded dry-run {label}: {res['error']}")
+            require(res["collectives"]["count"] > 0
+                    and res["memory"]["peak_bytes"] > 0,
+                    f"lm_sharded dry-run {label}: nothing counted")
+            log(f"[lm_sharded] (a) {out.strip().splitlines()[-2]} (counts "
+                f"from a trace)")
+            flops[label] = res["flops_per_device"]
+        tp, fsdp = (flops["llama3-8b|train_4k|" + r] for r in ("tp", "fsdp"))
+        require(abs(tp - fsdp) <= 1e-9 * fsdp,
+                f"lm_sharded llama3-8b train_4k: {tp:.6e} FLOPs a rank "
+                f"under tp against {fsdp:.6e} under pure FSDP")
+        log(f"[lm_sharded] (a) llama3-8b train_4k: {tp:.6e} FLOPs a rank "
+            f"under tp and pure FSDP alike (counts from a trace)")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A real one-rank process group (NCCL on the card) and a (1, 1)
+    ("data", "model") mesh under the tp rules, ``AXIS_SIZES`` set to 1;
+    every setting restored after."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.sharding.rules as R
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    sizes, rules = dict(R.AXIS_SIZES), R.current_rules()
+    R.AXIS_SIZES.update({"data": 1, "model": 1})
+    R.set_rules(R.AxisRules(batch_axes=("data",), model_axis_size=1))
+    try:
+        yield init_device_mesh(DEVICE, (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        R.AXIS_SIZES.update(sizes)
+        R.set_rules(rules)
+        dist.destroy_process_group()
+
+
+def _whole(x):
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _sharded_state(torch, mesh, cfg, params, batch):
+    """``params`` (copied), their AdamW state and ``batch`` as DTensors
+    placed by the current rules."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.sharding.rules import (current_rules, distribute,
+                                            param_pspecs, placements, spec)
+
+    rules = current_rules()
+    sp = distribute(tree_map(lambda t: t.clone(), params),
+                    param_pspecs(params, fsdp=cfg.fsdp, rules=rules), mesh)
+    sb = {k: distribute_tensor(v, mesh, placements(
+        spec(rules.batch_axes, *([None] * (v.ndim - 1))), mesh))
+        for k, v in batch.items()}
+    return sp, adamw_init(sp), sb
+
+
+def lm_sharded_bitwise(torch, mesh) -> None:
+    """(b): qwen2-0.5b at full width in bfloat16, 4 x 256 tokens of the
+    launcher's stream: the loss and gradients, then one step, through
+    the sharded path on the (1, 1) mesh and the unsharded one from the
+    same parameters; every collective is the identity, so both must be
+    bitwise equal (a difference names the leaf it starts in)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm import init_train_state, make_train_step
+    from repro_torch.models.lm.steps import loss_and_grads
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.sharding.rules import _paths
+
+    cfg = get_config(LM_SHARDED_BITWISE)
+    params, opt = init_train_state(cfg, seed=0, device=DEVICE)
+    batch = _lm_batches(torch, cfg, 4, 256, 1, DEVICE)[0]
+    sp, sopt, sb = _sharded_state(torch, mesh, cfg, params, batch)
+    names = [p for p, _ in _paths(params)]
+    (l0, _), g0 = loss_and_grads(cfg, params, batch)
+    with use_mesh(mesh), implicit_replication():
+        (l1, _), g1 = loss_and_grads(cfg, sp, sb)
+    diff = [(n, max_err(torch, _whole(b).float(), a.float()))
+            for n, a, b in zip(names, tree_leaves(g0), tree_leaves(g1))
+            if not torch.equal(_whole(b), a)]
+    require(torch.equal(_whole(l1), l0) and not diff,
+            f"lm_sharded {LM_SHARDED_BITWISE}: the sharded loss "
+            f"{float(_whole(l1))!r} / {float(l0)!r}; gradients differ in "
+            f"{diff[:6]}")
+    del g0, g1
+    step = make_train_step(cfg)
+    k2 = CUDA_WRAPPERS["segment_sum"]
+    before = k2.launches
+    t0 = time.perf_counter()
+    with use_mesh(mesh), implicit_replication():
+        sp, sopt, m1 = step(sp, sopt, sb)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launched = k2.launches - before
+    params, opt, m0 = step(params, opt, batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    diff = [n for n, a, b in zip(names, tree_leaves(params),
+                                 tree_leaves(sp))
+            if not torch.equal(_whole(b), a)]
+    require(torch.equal(_whole(m1["loss"]), m0["loss"]) and not diff,
+            f"lm_sharded {LM_SHARDED_BITWISE}: after one step the loss "
+            f"{float(_whole(m1['loss']))!r} / {float(m0['loss'])!r}; "
+            f"parameters differ in {diff[:6]}")
+    require(launched > 0, f"lm_sharded {LM_SHARDED_BITWISE}: K2 never "
+                          f"launched in the sharded step")
+    log(f"[lm_sharded] (b) {LM_SHARDED_BITWISE} full width bfloat16, 4x256 "
+        f"tokens, (1, 1) mesh on a one-rank NCCL group: loss "
+        f"{float(m0['loss']):.6f} and every gradient and updated parameter "
+        f"({len(names)} leaves) bitwise the unsharded step's; K2 launched "
+        f"{launched} times in the sharded step; sharded step "
+        f"{(t1 - t0) * 1e3:.1f} ms, unsharded {(t2 - t1) * 1e3:.1f} ms "
+        f"(first steps, untuned)")
+    del params, opt, sp, sopt, sb, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_sharded_moe_step(torch, mesh) -> None:
+    """(b): granite-moe-3b-a800m at full width in bfloat16, one sharded
+    step of 4 x 256 tokens on the (1, 1) mesh, whose every MoE layer takes
+    ``_moe_sharded``: the loss finite, K2 launched."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import CUDA_WRAPPERS
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm import init_train_state, make_train_step
+    from repro_torch.models.lm import moe
+
+    cfg = get_config(LM_SHARDED_MOE)
+    params, _ = init_train_state(cfg, seed=0, device=DEVICE)
+    batch = _lm_batches(torch, cfg, 4, 256, 1, DEVICE)[0]
+    sp, sopt, sb = _sharded_state(torch, mesh, cfg, params, batch)
+    del params
+    gc.collect()
+    calls = []
+    inner = moe._moe_sharded
+
+    def sharded(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    moe._moe_sharded = sharded
+    k2 = CUDA_WRAPPERS["segment_sum"]
+    before = k2.launches
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with use_mesh(mesh), implicit_replication():
+            sp, sopt, m = make_train_step(cfg)(sp, sopt, sb)
+        torch.cuda.synchronize()
+    finally:
+        moe._moe_sharded = inner
+    loss = float(_whole(m["loss"]))
+    # each layer's forward once, and once more in the backward with remat
+    want = cfg.num_layers * (2 if cfg.remat else 1)
+    require(np.isfinite(loss) and len(calls) == want,
+            f"lm_sharded {LM_SHARDED_MOE}: loss {loss}, _moe_sharded "
+            f"called {len(calls)} times, {want} expected")
+    log(f"[lm_sharded] (b) {LM_SHARDED_MOE} full width bfloat16, 4x256 "
+        f"tokens, (1, 1) mesh: one sharded step, loss {loss:.6f}, "
+        f"_moe_sharded called {len(calls)} times ({cfg.num_layers} layers, "
+        f"remat {cfg.remat}), K2 launched "
+        f"{k2.launches - before} times, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first step), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del sp, sopt, sb, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_sharded_dispatches(torch, mesh) -> None:
+    """(c): one granite-moe-3b-a800m MoE layer at full width (1,024
+    tokens), at the capacity factor E / k, where no assignment can drop
+    (the drop count, from the dispatches' capacity formulas, is printed
+    and must be 0): ``_moe_sharded`` and ``_moe_sharded_a2a`` on the
+    (1, 1) mesh against ``_moe_local``, in float32 within rtol = atol =
+    1e-5 and in bfloat16 within LM_MOE_BF16_BOUND_U."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.lm.model import init_params, layer
+    from repro_torch.models.lm.moe import (_moe_local, _moe_sharded,
+                                           _moe_sharded_a2a, _route)
+
+    base = get_config(LM_SHARDED_MOE)
+    e, k = base.num_experts, base.experts_per_tok
+    rep = (Replicate(), Replicate())
+    b, s = 4, 256
+    t = b * s
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, num_layers=1, dtype=dtype,
+                                  moe_capacity_factor=e / k)
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        p = layer(init_params(cfg, gen)["blocks"]["moe"], 0)
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=DEVICE).to(p["experts_gate"].dtype)
+        with torch.no_grad():
+            _, top_i, _ = _route(x.reshape(t, -1), p["router"], k)
+            per_expert = torch.bincount(top_i.reshape(-1), minlength=e)
+            # both dispatches' capacity a expert on one rank (the
+            # all-to-all's wire holds cf * t * k rows: all of them)
+            cap = int(cfg.moe_capacity_factor * t * k / e) + 1
+            drops = int((per_expert - cap).clamp(min=0).sum())
+            want, _ = _moe_local(p, x, cfg)
+            pd = {n: distribute_tensor(v, mesh, rep) for n, v in p.items()}
+            xd = distribute_tensor(x, mesh, rep)
+            with use_mesh(mesh), implicit_replication():
+                got = {"allgather": _whole(_moe_sharded(pd, xd, cfg,
+                                                        mesh)[0]),
+                       "a2a": _whole(_moe_sharded_a2a(pd, xd, cfg,
+                                                      mesh)[0])}
+        require(drops == 0, f"lm_sharded {LM_SHARDED_MOE}: {drops} "
+                            f"assignments over capacity")
+        errs = {}
+        for name, out in got.items():
+            what = f"lm_sharded {LM_SHARDED_MOE} {name} {dtype}"
+            if dtype == "float32":
+                check_close(torch, out, want, 1e-5, 1e-5, what)
+                errs[name] = f"max abs err {max_err(torch, out, want):.3e}"
+            else:
+                u = (max_err(torch, out.float(), want.float())
+                     / float(want.float().abs().max()) / 2.0 ** -8)
+                require(u <= LM_MOE_BF16_BOUND_U,
+                        f"{what}: {u:.3f} u from _moe_local")
+                errs[name] = f"{u:.3f} u of max |_moe_local|"
+        log(f"[lm_sharded] (c) {LM_SHARDED_MOE} one MoE layer, {t} "
+            f"tokens, {e} experts, k {k}, capacity factor {e / k:.1f} "
+            f"(cap {cap} a expert), {dtype}: {drops} assignments dropped; "
+            f"against _moe_local: " + ", ".join(
+                f"{n} {v}" for n, v in errs.items()))
+        del p, pd, x, xd, got, want
+        torch.cuda.empty_cache()
+
+
+def lm_sharded_paths(torch) -> None:
+    """(b) and (c) on one one-rank mesh."""
+    with one_rank_mesh(torch) as mesh:
+        lm_sharded_bitwise(torch, mesh)
+        lm_sharded_moe_step(torch, mesh)
+        lm_sharded_dispatches(torch, mesh)
+
+
+def phase_lm_sharded(torch, launches: dict) -> None:
+    """The sharded path: (a) the dry-runs, in subprocesses started first;
+    (b) and (c) on the card, counted (K2 on the sharded steps); then (a)'s
+    results."""
+    t0 = time.perf_counter()
+    procs = lm_sharded_dryruns_start()
+    try:
+        _, launches["lm_sharded"] = counted(
+            "lm_sharded", lambda: lm_sharded_paths(torch))
+        t1 = time.perf_counter()
+    finally:
+        lm_sharded_dryruns_finish(procs)
+    log(f"[lm_sharded] phase {time.perf_counter() - t0:.2f} s ((b) and (c) "
+        f"{t1 - t0:.2f} s, the dry-runs running beside them)")
 
 
 def _sums(cases: list) -> dict:
@@ -3364,6 +3766,7 @@ def main() -> int:
     phase_offline(torch, launches, extra)
     phase_lm_serve(torch)
     phase_lm_train(torch, launches, extra)
+    phase_lm_sharded(torch, launches)
     primary.update(gat_train)
     primary["fused_gather_aggregate_bwd"] = \
         sage_train["fused_gather_aggregate_bwd"]

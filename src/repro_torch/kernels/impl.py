@@ -9,17 +9,36 @@
 ==========  ===========  ================
 
 There is no fallback: on a CUDA tensor ``"auto"`` launches the kernel, and
-a kernel that fails to build or launch raises.
+a kernel that fails to build or launch raises. The one exception is set
+by name: inside :func:`plain_kernels` (the dry-run's trace, whose fake
+``cuda`` tensors no kernel can take) ``"auto"`` means ``"ref"``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 IMPLS = ("auto", "ref", "cuda")
+_AUTO = "auto"
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block, ``impl="auto"`` resolves to ``"ref"`` on every
+    device: the plain versions, for a trace on fake tensors."""
+    global _AUTO
+    prev, _AUTO = _AUTO, "ref"
+    try:
+        yield
+    finally:
+        _AUTO = prev
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
     """``"cuda"`` or ``"ref"`` for an op whose main input is ``x``."""
+    if impl == "auto":
+        impl = _AUTO
     if impl == "ref":
         return "ref"
     if impl == "auto":

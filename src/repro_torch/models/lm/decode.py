@@ -17,10 +17,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from ...sharding.rules import (_active_mesh, cache_pspecs, current_rules,
+                               local_call, mm, placements, reshape, spec,
+                               spec_of)
 from .config import LMConfig, torch_dtype
 from .layers import (attention, cache_update, decode_attention, mlp_block,
                      project_kv, project_q, rmsnorm)
-from .model import layer, lm_head, num_stacked
+from .model import embed_tokens, layer, lm_head, num_stacked
 from .moe import moe_block
 from .ssm import mamba2_block
 
@@ -30,13 +35,16 @@ from .ssm import mamba2_block
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, cache_len: int,
-               encoder_seq: Optional[int] = None, device="cpu") -> dict:
+               encoder_seq: Optional[int] = None, device="cpu",
+               mesh=None) -> dict:
+    """Zeroed caches; with ``mesh``, DTensors placed by ``cache_pspecs``
+    under the current rules (each rank allocates its shards only)."""
     dtype = torch_dtype(cfg.dtype)
     kv, hd = cfg.num_kv_heads, cfg.hd
     at = cfg.arch_type
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return _Zeros(shape, dt)
 
     cache: dict = {"pos": 0}
     if at in ("dense", "moe", "vlm"):
@@ -69,11 +77,45 @@ def init_cache(cfg: LMConfig, batch: int, cache_len: int,
         cache["xv"] = zeros(cfg.num_layers, batch, enc_s, kv, hd)
     else:
         raise ValueError(at)
-    return cache
+    if mesh is None:
+        return {k: v.make(device) if isinstance(v, _Zeros) else v
+                for k, v in cache.items()}
+    specs = cache_pspecs(cfg, cache, batch, current_rules())
+    return {k: v.make_sharded(mesh, specs[k]) if isinstance(v, _Zeros)
+            else v for k, v in cache.items()}
+
+
+class _Zeros:
+    """A cache entry's shape and dtype, made at the end of ``init_cache``
+    (after its specs are known, for a sharded cache)."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+
+    def make(self, device):
+        return torch.zeros(self.shape, dtype=self.dtype, device=device)
+
+    def make_sharded(self, mesh, spec_):
+        from torch.distributed.tensor import zeros
+        return zeros(self.shape, dtype=self.dtype, device_mesh=mesh,
+                     placements=placements(spec_, mesh))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table by :func:`embed_tokens`."""
+    if isinstance(table, DTensor):
+        return embed_tokens(table, tokens)
+    return table[tokens]
 
 
 def _ring_fill(k_seq: torch.Tensor, cache_len: int) -> torch.Tensor:
-    """(B, S, KV, hd) per-position k/v -> ring cache (B, W, KV, hd)."""
+    """(B, S, KV, hd) per-position k/v -> ring cache (B, W, KV, hd). On a
+    DTensor, on each rank's batch and heads (the ring whole)."""
+    if _active_mesh() is not None and isinstance(k_seq, DTensor):
+        b_e, _, kv_e, hd_e = spec_of(k_seq)
+        sp = spec(b_e, None, kv_e, hd_e)
+        return local_call(lambda t: _ring_fill(t, cache_len), (sp,), sp,
+                          k_seq)
     s = k_seq.shape[1]
     w = cache_len
     if s <= w:
@@ -95,7 +137,7 @@ def _attn_prefill(cfg, ap, hn, positions, window, cache_len):
     q = project_q(ap, hn, cfg, positions)
     k, v = project_kv(ap, hn, cfg, positions)
     o = attention(q, k, v, causal=True, window=window, chunk=cfg.attn_chunk)
-    return (o.reshape(b, s, -1) @ ap["wo"], _ring_fill(k, cache_len),
+    return (mm(reshape(o, b, s, -1), ap["wo"]), _ring_fill(k, cache_len),
             _ring_fill(v, cache_len))
 
 
@@ -112,15 +154,17 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
     """Run the full prompt, build the serve cache.
     Returns (last-position logits (B, padded_vocab), cache)."""
     window = cfg.sliding_window
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.arch_type == "vlm":
         x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     at = cfg.arch_type
+    mesh = _active_mesh()
     cache = init_cache(cfg, b, cache_len,
                        encoder_seq=None if encoder_embeds is None
-                       else encoder_embeds.shape[1], device=x.device)
+                       else encoder_embeds.shape[1], device=x.device,
+                       mesh=mesh if isinstance(x, DTensor) else None)
     blocks = params["blocks"]
 
     if at in ("dense", "moe", "vlm"):
@@ -170,8 +214,8 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
             q = project_q(bp["attn"], hn, cfg, enc_pos)
             k, v = project_kv(bp["attn"], hn, cfg, enc_pos)
             o = attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-            enc = enc + (o.reshape(enc.shape[0], enc.shape[1], -1)
-                         @ bp["attn"]["wo"])
+            enc = enc + mm(reshape(o, enc.shape[0], enc.shape[1], -1),
+                           bp["attn"]["wo"])
             enc = enc + mlp_block(bp["mlp"],
                                   rmsnorm(enc, bp["ln2"], cfg.norm_eps),
                                   kind="gelu")
@@ -188,7 +232,7 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                                 use_rope=False)
             cache["xk"][i], cache["xv"][i] = xk, xv
             ox = attention(qx, xk, xv, causal=False, chunk=cfg.attn_chunk)
-            x = x + ox.reshape(b, s, -1) @ bp["xattn"]["wo"]
+            x = x + mm(reshape(ox, b, s, -1), bp["xattn"]["wo"])
             x = x + mlp_block(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps),
                               kind="gelu")
     else:
@@ -196,7 +240,7 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
 
     cache["pos"] = s
     x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return (x @ lm_head(cfg, params))[:, 0], cache
+    return mm(x, lm_head(cfg, params))[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +255,7 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
     updated in place)."""
     window = cfg.sliding_window
     pos = cache["pos"]
-    x = params["embed"][tokens]                     # (B, 1, d)
+    x = _lookup(params["embed"], tokens)            # (B, 1, d)
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
     at = cfg.arch_type
@@ -222,7 +266,7 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
         k, v = project_kv(ap, hn, cfg, positions)
         kc, vc = cache_update(kc, vc, k, v, pos)
         o = decode_attention(q, kc, vc, pos, window=window)
-        return o.reshape(b, 1, -1) @ ap["wo"]
+        return mm(reshape(o, b, 1, -1), ap["wo"])
 
     def mamba_decode(bp, h, S, conv):
         """One Mamba2 layer; writes its new states into S and conv."""
@@ -278,7 +322,7 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
             qx = project_q(bp["xattn"], hx, cfg, positions, use_rope=False)
             sc = attention(qx, cache["xk"][i], cache["xv"][i], causal=False,
                            chunk=1)
-            x = x + sc.reshape(b, 1, -1) @ bp["xattn"]["wo"]
+            x = x + mm(reshape(sc, b, 1, -1), bp["xattn"]["wo"])
             x = x + mlp_block(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps),
                               kind="gelu")
     else:
@@ -286,4 +330,4 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
 
     cache["pos"] = pos + 1
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ lm_head(cfg, params))[:, 0], cache
+    return mm(x, lm_head(cfg, params))[:, 0], cache

@@ -24,10 +24,14 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ...kernels import keyed_rows
 from ...optim.optimizers import tree_leaves, tree_map
+from ...sharding import collectives as C
+from ...sharding.rules import (_active_mesh, batch_spec, current_rules,
+                               fit, local_call, maybe_constrain, spec)
 from .config import LMConfig, torch_dtype
 from .layers import attn_block, mlp_block, rmsnorm
 from .moe import moe_block
@@ -69,18 +73,23 @@ def num_stacked(tree: Any) -> int:
 class _Init:
     """Draws the parameters from one generator, in float32 scaled by
     1/sqrt(fan_in) (or ``scale``) and then cast, as the reference's
-    ``_dense_init``; on the generator's device."""
+    ``_dense_init``; on the generator's device, or on ``device`` (fake
+    tensors, drawn from nothing)."""
 
-    def __init__(self, gen: torch.Generator, dtype: torch.dtype):
+    def __init__(self, gen: torch.Generator, dtype: torch.dtype,
+                 device=None):
         self.gen, self.dtype = gen, dtype
-        self.device = gen.device
+        self.device = torch.device(device or gen.device)
 
     def dense(self, shape, dtype=None, scale=None) -> torch.Tensor:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = scale or 1.0 / math.sqrt(fan_in)
-        x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                        device=self.device) * scale
-        return x.to(dtype or self.dtype)
+        if self.device == self.gen.device:
+            x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
+                            device=self.device)
+        else:   # abstract_params: a fake tensor whose values none reads
+            x = torch.empty(shape, dtype=torch.float32, device=self.device)
+        return (x * scale).to(dtype or self.dtype)
 
     def zeros(self, shape, dtype=None) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype or self.dtype,
@@ -154,11 +163,12 @@ def _mamba_params(cfg: LMConfig, init: _Init) -> dict:
     }
 
 
-def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
+def init_params(cfg: LMConfig, gen: torch.Generator, device=None) -> dict:
     """Random parameters in the reference's tree and shapes, drawn from
     ``gen`` on its device (the values are not the reference's: its key
-    drives another generator)."""
-    init = _Init(gen, torch_dtype(cfg.dtype))
+    drives another generator) and placed on ``device`` (default: the
+    generator's)."""
+    init = _Init(gen, torch_dtype(cfg.dtype), device)
     d, v = cfg.d_model, cfg.padded_vocab
     params = {"embed": init.dense((v, d), scale=0.02 * math.sqrt(d)),
               "final_norm": init.ones((d,))}
@@ -216,32 +226,102 @@ def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     return params
 
 
+def abstract_params(cfg: LMConfig, device="cpu") -> dict:
+    """The parameter tree as fake tensors on ``device``: shapes and dtypes
+    without memory (the dry-run's). Drawn from a CPU generator, so no
+    card is needed for ``device="cuda"``; under the caller's
+    ``FakeTensorMode`` if one is active, else a new one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    gen = torch.Generator().manual_seed(0)
+    if isinstance(_get_current_dispatch_mode(), FakeTensorMode):
+        return init_params(cfg, gen, device)
+    with FakeTensorMode():
+        return init_params(cfg, gen, device)
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding's rows, (B, S) -> (B, S, d):
+    :func:`~repro_torch.kernels.keyed_rows`. On a DTensor table (a mesh
+    active), each rank looks its tokens up in its slice of the vocabulary
+    (sharded over "model", the batch over the batch axes), zeroes the
+    rows it does not hold and sums over "model", as GSPMD gathers a
+    vocabulary-sharded table; where the vocabulary is not sharded over
+    an axis the batch is not, the table is gathered whole."""
+    r = current_rules()
+    m = r.model_axis
+    mesh = _active_mesh()
+    if mesh is None or not isinstance(table, DTensor):
+        return keyed_rows(table, tokens)
+    vocab = None
+    if (not r.pure_fsdp and m not in r.batch_axes
+            and table.shape[0] % mesh[m].size() == 0):
+        vocab = m
+
+    def body(tab, tok):
+        lo = C.axis_index(mesh, vocab) * tab.shape[0] if vocab else 0
+        local = tok.long() - lo
+        inside = (local >= 0) & (local < tab.shape[0])
+        rows = keyed_rows(tab, local.clamp(0, tab.shape[0] - 1))
+        rows = torch.where(inside[..., None], rows, 0)
+        return C.psum(rows, mesh, vocab) if vocab else rows
+    tspec = fit(batch_spec(None), tokens.shape)
+    return local_call(body, (spec(vocab, None), tspec), tspec + (None,),
+                      table, tokens)
+
+
 # ---------------------------------------------------------------------------
 # forward (scoring)
 # ---------------------------------------------------------------------------
 
+def _constrain_act(x):
+    """Block-boundary activation sharding (the identity without a mesh).
+
+    Megatron sequence parallelism: the (B, S, D) residual stream is sharded
+    over "model" on the *sequence* dim between blocks (norm/residual are
+    elementwise), so per-layer remat residuals shrink by the model-axis
+    size; each block's first product gathers it (:func:`mm`) and its last
+    one's partial sums are scattered back here. Falls back to the batch
+    spec when S doesn't divide (whisper's 1500-frame encoder, one-token
+    decode)."""
+    r = current_rules()
+    if (r.seq_shard_activations and x.ndim >= 3
+            and x.shape[1] % r.model_axis_size == 0):
+        return maybe_constrain(x, spec(r.batch_axes, r.model_axis, None))
+    return maybe_constrain(x, batch_spec(None, None))
+
+
 def _dense_block(cfg: LMConfig, bp: dict, x, positions, window):
-    h = x + attn_block(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg,
-                       positions=positions, window=window)
-    hn = rmsnorm(h, bp["ln2"], cfg.norm_eps)
+    # norm outputs and sub-block outputs are pinned to the
+    # sequence-parallel spec, as the reference pins them
+    o = attn_block(bp["attn"],
+                   _constrain_act(rmsnorm(x, bp["ln1"], cfg.norm_eps)), cfg,
+                   positions=positions, window=window)
+    h = x + _constrain_act(o)
+    hn = _constrain_act(rmsnorm(h, bp["ln2"], cfg.norm_eps))
     if "moe" in bp:
         ff, aux = moe_block(bp["moe"], hn, cfg)
     else:
         ff = mlp_block(bp["mlp"], hn, kind="swiglu")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return h + ff, aux
+    return _constrain_act(h + _constrain_act(ff)), aux
 
 
 def _mamba_layer(cfg: LMConfig, bp: dict, x):
     out, _, _ = mamba2_block(bp["mamba"],
                              rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg)
-    return x + out
+    # sub-block outputs (partial sums on a mesh) are placed before the
+    # residual add, as in _dense_block, so that their gradients arrive
+    # gathered
+    return _constrain_act(x + _constrain_act(out))
 
 
 def _shared_attn_block(cfg: LMConfig, sp: dict, x, positions, window):
-    h = x + attn_block(sp["attn"], rmsnorm(x, sp["ln_a"], cfg.norm_eps), cfg,
-                       positions=positions, window=window)
-    return h + mlp_block(sp["mlp"], rmsnorm(h, sp["ln_m"], cfg.norm_eps))
+    h = x + _constrain_act(attn_block(
+        sp["attn"], rmsnorm(x, sp["ln_a"], cfg.norm_eps), cfg,
+        positions=positions, window=window))
+    return _constrain_act(h + _constrain_act(
+        mlp_block(sp["mlp"], rmsnorm(h, sp["ln_m"], cfg.norm_eps))))
 
 
 def _remat(cfg: LMConfig, fn: Callable, *args):
@@ -255,13 +335,14 @@ def _remat(cfg: LMConfig, fn: Callable, *args):
 
 def _audio_decoder_block(cfg: LMConfig, bp: dict, x, positions, window, enc,
                          enc_pos):
-    x = x + attn_block(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg,
-                       positions=positions, window=window)
-    x = x + attn_block(bp["xattn"], rmsnorm(x, bp["ln_x"], cfg.norm_eps),
-                       cfg, positions=positions, context=enc,
-                       context_positions=enc_pos)
-    return x + mlp_block(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps),
-                         kind="gelu")
+    x = x + _constrain_act(attn_block(
+        bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps), cfg,
+        positions=positions, window=window))
+    x = x + _constrain_act(attn_block(
+        bp["xattn"], rmsnorm(x, bp["ln_x"], cfg.norm_eps), cfg,
+        positions=positions, context=enc, context_positions=enc_pos))
+    return _constrain_act(x + _constrain_act(mlp_block(
+        bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps), kind="gelu")))
 
 
 def lm_head(cfg: LMConfig, params: dict) -> torch.Tensor:
@@ -284,11 +365,12 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     (B, S_enc, d) go through the encoder stack, and the decoder
     cross-attends to them."""
     window = cfg.sliding_window
-    x = keyed_rows(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens)
     if cfg.arch_type == "vlm":
         if image_embeds is None:
             raise ValueError("a vlm forward needs image_embeds")
         x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+    x = _constrain_act(x)
     positions = torch.arange(x.shape[1], device=x.device)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -323,15 +405,15 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     elif at == "audio":
         if encoder_embeds is None:
             raise ValueError("an audio forward needs encoder_embeds")
-        enc = encoder_embeds.to(x.dtype)
+        enc = _constrain_act(encoder_embeds.to(x.dtype))
         enc_pos = torch.arange(enc.shape[1], device=x.device)
         for bp in unstack(params["enc_blocks"]):  # not rematerialised
-            enc = enc + attn_block(bp["attn"],
-                                   rmsnorm(enc, bp["ln1"], cfg.norm_eps),
-                                   cfg, positions=enc_pos, causal=False)
-            enc = enc + mlp_block(bp["mlp"],
-                                  rmsnorm(enc, bp["ln2"], cfg.norm_eps),
-                                  kind="gelu")
+            enc = enc + _constrain_act(attn_block(
+                bp["attn"], rmsnorm(enc, bp["ln1"], cfg.norm_eps), cfg,
+                positions=enc_pos, causal=False))
+            enc = _constrain_act(enc + _constrain_act(mlp_block(
+                bp["mlp"], rmsnorm(enc, bp["ln2"], cfg.norm_eps),
+                kind="gelu")))
         enc = rmsnorm(enc, params["enc_norm"], cfg.norm_eps)
 
         def decoder(bp, h, enc):

@@ -16,10 +16,16 @@ is ever formed whatever path ``torch.einsum`` would pick.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.distributed.tensor import DTensor
+
+from ...sharding.rules import (_active_mesh, current_rules, fit,
+                               local_call, mm, reshape, spec)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +99,72 @@ def ssd_chunked(x, dt, a_log, B, C, D, chunk: int,
     return y, S
 
 
+def _local(x):
+    """(mesh, the batch's axes that divide ``x``'s batch, "model" where it
+    divides ``x``'s last dim and the rules shard over it) for a DTensor
+    ``x`` under an active mesh, else ``None``."""
+    mesh = _active_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return None
+    r = current_rules()
+    m = r.model_axis
+    if r.pure_fsdp or x.shape[-1] % mesh[m].size():
+        m = None
+    return mesh, fit(spec(r.batch_axes), x.shape)[0], m
+
+
+def _conv(x, w, b):
+    """:func:`_depthwise_causal_conv`; on DTensors on each rank's channels
+    (over "model" where they divide) with the sequence whole."""
+    loc = _local(x)
+    if loc is None:
+        return _depthwise_causal_conv(x, w, b)
+    _, ba, ch = loc
+    xs = spec(ba, None, ch)
+    return local_call(_depthwise_causal_conv, (xs, spec(None, ch), spec(ch)),
+                      xs, x, w, b)
+
+
+def _conv_tail(xi_raw, bc_raw, km1: int):
+    """The decode conv state after a prompt: its last ``km1`` steps of x
+    channels then B|C, zero-padded in front; on DTensors on each rank's
+    batch."""
+    def tail(xr, bcr):
+        raw = torch.cat([xr, bcr], dim=-1)
+        return F.pad(raw, (0, 0, km1, 0))[:, -km1:, :]
+    loc = _local(xi_raw)
+    if loc is None:
+        return tail(xi_raw, bc_raw)
+    bs = spec(loc[1], None, None)
+    return local_call(tail, (bs, bs), bs, xi_raw, bc_raw)
+
+
+def _ssd(x, dt, a_log, B, C, D, chunk, init_state):
+    """:func:`ssd_chunked`; on DTensors (a mesh active), on each rank's
+    heads, as the reference's head-sharded SSD (heads over "model" where
+    they divide, the batch over the batch axes; B and C whole on each)."""
+    r = current_rules()
+    m = None if r.pure_fsdp else r.model_axis
+    mesh = _active_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return ssd_chunked(x, dt, a_log, B, C, D, chunk, init_state)
+    if m is not None and x.shape[2] % mesh[m].size():
+        m = None
+    ba = fit(spec(r.batch_axes), x.shape)[0]
+    heads = spec(ba, None, m, None)
+    state = spec(ba, m, None, None)
+    fn = functools.partial(_ssd_local, chunk=chunk)
+    return local_call(
+        fn, (heads, spec(ba, None, m), spec(m), spec(ba, None, None),
+             spec(ba, None, None), spec(m),
+             None if init_state is None else state),
+        [heads, state], x, dt, a_log, B, C, D, init_state)
+
+
+def _ssd_local(x, dt, a_log, B, C, D, init_state, chunk):
+    return ssd_chunked(x, dt, a_log, B, C, D, chunk, init_state)
+
+
 def ssd_decode_step(S, x, dt, a_log, B, C, D):
     """One-token recurrence. x: (b,h,p); dt: (b,h); B,C: (b,n).
     Returns (y: (b,h,p), S_new: (b,h,p,n))."""
@@ -126,9 +198,9 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg,
     b, l, _ = x.shape
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     pdim = cfg.ssm_head_dim
-    zx = x @ p["in_proj"]                                       # (b,l,2di)
+    zx = mm(x, p["in_proj"])                                    # (b,l,2di)
     z, xi_raw = zx[..., :di], zx[..., di:]
-    bcdt = x @ p["bc_proj"]                                     # (b,l,2n+h)
+    bcdt = mm(x, p["bc_proj"])                                  # (b,l,2n+h)
     bc_raw = bcdt[..., :2 * n]
     dt = softplus(bcdt[..., 2 * n:] + p["dt_bias"])             # (b,l,h)
 
@@ -145,18 +217,17 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg,
         y, new_S = ssd_decode_step(ssm_state, xi, dt[:, 0], p["a_log"],
                                    Bv, Cv, p["D"])
         y = y.reshape(b, 1, di)
-        out = (y * F.silu(z)) @ p["out_proj"]
+        out = mm(y * F.silu(z), p["out_proj"])
         return out, new_S, new_conv_state
 
-    conv_x = _depthwise_causal_conv(xi_raw, p["conv_w"], p["conv_b"])
-    conv_bc = _depthwise_causal_conv(bc_raw, p["conv_bc_w"], p["conv_bc_b"])
-    xi = conv_x.reshape(b, l, h, pdim)
+    conv_x = _conv(xi_raw, p["conv_w"], p["conv_b"])
+    conv_bc = _conv(bc_raw, p["conv_bc_w"], p["conv_bc_b"])
+    xi = reshape(conv_x, b, l, h, pdim)
     Bv, Cv = conv_bc[..., :n], conv_bc[..., n:]
-    y, S_final = ssd_chunked(xi, dt, p["a_log"], Bv, Cv, p["D"],
-                             cfg.ssm_chunk, init_state=ssm_state)
-    y = y.reshape(b, l, di)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    y, S_final = _ssd(xi, dt, p["a_log"], Bv, Cv, p["D"], cfg.ssm_chunk,
+                      ssm_state)
+    y = reshape(y, b, l, di)
+    out = mm(y * F.silu(z), p["out_proj"])
     km1 = cfg.ssm_conv - 1
-    raw = torch.cat([xi_raw, bc_raw], dim=-1)
-    new_conv_state = F.pad(raw, (0, 0, km1, 0))[:, -km1:, :]
+    new_conv_state = _conv_tail(xi_raw, bc_raw, km1)
     return out, S_final, new_conv_state

@@ -19,13 +19,19 @@ temporaries: what lets a 3.3 B-parameter model train on one 80 GB card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ...optim.optimizers import (AdamWState, adamw_init, adamw_update,
                                  clip_scale, global_norm, tree_leaves,
                                  tree_map)
+from ...sharding import collectives as C
+from ...sharding.rules import (_active_mesh, current_rules, fit,
+                               local_call, spec)
 from .config import LMConfig
 from .decode import decode_step, prefill
 from .model import forward, init_params, lm_head
@@ -43,14 +49,55 @@ def _ce_chunk(hc, head, tc, mc):
     return ((lse - tl) * mc).sum()
 
 
+def _ce_chunk_sharded(hc, head, tc, mc, mesh, vocab_axis):
+    """:func:`_ce_chunk` on one rank's shards: ``head`` holds this rank's
+    slice of the vocabulary on ``vocab_axis`` (all of it where that is
+    ``None``: then it is :func:`_ce_chunk` itself); the logsumexp and the
+    target logit sum over the vocabulary's ranks."""
+    if vocab_axis is None:
+        return _ce_chunk(hc, head, tc, mc)
+    logits = (hc @ head).float()                    # (b, c, V / ranks)
+    v = logits.shape[-1]
+    mx = C.pmax(logits.detach().amax(-1), mesh, vocab_axis)
+    lse = torch.log(C.psum(torch.exp(logits - mx[..., None]).sum(-1), mesh,
+                           vocab_axis)) + mx
+    local = tc.long() - C.axis_index(mesh, vocab_axis) * v
+    inside = (local >= 0) & (local < v)
+    tl = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    tl = C.psum(torch.where(inside, tl, 0.0), mesh, vocab_axis)
+    return ((lse - tl) * mc).sum()
+
+
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tgt: torch.Tensor,
-                mask: torch.Tensor, chunk: int = CE_CHUNK) -> torch.Tensor:
+                mask: torch.Tensor, chunk: int = CE_CHUNK,
+                ce=_ce_chunk) -> torch.Tensor:
     """Softmax cross-entropy fused with the head projection, a chunk of
     ``chunk`` positions at a time: the (B, S, vocab) logits never exist,
     only one (B, chunk, vocab) float32 slice, and each chunk runs under
     ``torch.utils.checkpoint`` so that its logits are recomputed in the
     backward, not stored. Positions padded up to a whole chunk have mask
-    0; the chunks' sums are added in chunk order."""
+    0; the chunks' sums are added in chunk order.
+
+    On DTensors (a mesh active), the reference's (batch, None, vocab over
+    "model") logits: the whole loop runs on each rank's shards, each rank
+    projecting its rows onto its slice of the vocabulary, and the total
+    is summed over the batch's ranks."""
+    mesh = _active_mesh()
+    if mesh is not None and isinstance(hidden, DTensor):
+        r = current_rules()
+        m = None if r.pure_fsdp else r.model_axis
+        if m is not None and (mesh[m].size() == 1
+                              or head.shape[1] % mesh[m].size()):
+            m = None
+        bspec = fit(spec(r.batch_axes, None), hidden.shape)
+
+        def body(h, hd, t, mk):
+            part = functools.partial(_ce_chunk_sharded, mesh=mesh,
+                                     vocab_axis=m)
+            return C.psum(_chunked_ce(h, hd, t, mk, chunk, part), mesh,
+                          bspec[0] or ())
+        return local_call(body, (bspec + (None,), spec(None, m), bspec,
+                                 bspec), (), hidden, head, tgt, mask)
     s = hidden.shape[1]
     pad = (-s) % chunk
     if pad:
@@ -60,7 +107,7 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, tgt: torch.Tensor,
     total = None
     for start in range(0, s + pad, chunk):
         sl = slice(start, start + chunk)
-        part = checkpoint(_ce_chunk, hidden[:, sl], head, tgt[:, sl],
+        part = checkpoint(ce, hidden[:, sl], head, tgt[:, sl],
                           mask[:, sl], use_reentrant=False,
                           preserve_rng_state=False)
         total = part if total is None else total + part
@@ -121,11 +168,21 @@ def adamw_update_(params, grad_leaves: list, opt_state: AdamWState,
     ``UPDATE_SLICE`` elements at a time through the reference's arithmetic
     (``clip_by_global_norm``'s float32 product, then
     :func:`adamw_update`), so the values are the functional update's; each
-    gradient is dropped from ``grad_leaves`` once its leaf is done."""
+    gradient is dropped from ``grad_leaves`` once its leaf is done.
+
+    On DTensors each rank updates its own shards: a gradient is first
+    placed as its parameter is (a reduce-scatter of a partial sum), and
+    the scale, a replicated scalar, is read whole."""
+    if isinstance(scale, DTensor):
+        scale = scale.full_tensor()
     grad_leaves.reverse()
     for p, m, v in zip(tree_leaves(params), tree_leaves(opt_state.mu),
                        tree_leaves(opt_state.nu)):
-        g = grad_leaves.pop().reshape(-1)
+        g = grad_leaves.pop()
+        if isinstance(p, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements).to_local()
+            p, m, v = p.to_local(), m.to_local(), v.to_local()
+        g = g.reshape(-1)
         flat = [t.view(-1) for t in (p, m, v)]      # views: written back
         for start in range(0, g.numel(), UPDATE_SLICE):
             ps, ms, vs = (t[start:start + UPDATE_SLICE] for t in flat)

@@ -35,8 +35,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 def adamw_init(params) -> AdamWState:
     # moments in f32 regardless of (possibly bf16) param dtype
-    def f32_zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def f32_zeros(p):      # a DTensor's moments are placed as it is
+        return torch.zeros_like(p, dtype=torch.float32)
     device = next(iter(tree_leaves(params))).device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=tree_map(f32_zeros, params),

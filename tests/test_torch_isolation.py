@@ -47,6 +47,9 @@ def test_port_imports_with_jax_unimportable():
         "import repro_torch.configs, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.optim, repro_torch.training\n"
         "import repro_torch.checkpoint\n"
+        "import repro_torch.sharding\n"
+        "from repro_torch.launch import (dryrun, gnn_dryrun, input_specs,\n"
+        "                                mesh, roofline)\n"
         "from repro_torch import DistEmbedding, SparseAdamConfig\n"
         "assert InferenceServer.__module__ == 'repro_torch.api.inference'\n"
         "assert DistGNNTrainer.__module__ == 'repro_torch.training.trainer'\n"
