@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card; about 16 minutes
+    python3 chip_smoke.py            # one card; about 15 minutes
 
 Phases, each of which exits non-zero when it fails:
 
@@ -181,7 +181,35 @@ Phases, each of which exits non-zero when it fails:
                product shape of the runs, whether one ``torch.bmm``
                changes a row's bits with the number of rows (logged) and
                that the pass's row tiles do not (required).
-13. lm_serve -- the LM serving path (``repro_torch.models.lm``,
+13. staging -- the per-array staging ablation against packed staging,
+               each per-array run counted: ``launch.train``'s trainer for
+               GraphSAGE and for GAT at phase 7's configuration with
+               ``impl="cuda"``, 2 epochs (6 steps) and a 2-batch
+               evaluation, packed and then with ``--no-packed-staging``:
+               losses, accuracies and final parameters bitwise equal; each
+               mode's ``stack_stage`` ms a step (median, host clock to a
+               synchronize) and its span (host and CUDA events), and a
+               ``NodeDataLoader`` with ``device_prefetch`` on trainer 0's
+               seeds for 4 epochs in each mode: the first staged batch
+               bitwise equal, the device-prefetch stage's busy us a
+               batch; then qwen2-0.5b through ``launch.train`` at full
+               width (4 steps of 4 x 256 tokens), packed,
+               ``--no-packed-staging`` and packed again: the same
+               ``[step]`` lines, losses, gradient norms and final
+               parameters.
+14. compaction -- ``to_block_device`` on the card on each layer of one
+               batch at the paper's config (1000 seeds, fanouts 15/10/5;
+               layer 0: 66,000 seeds, 990,000 edges), every live entry
+               equal to ``to_block_reference`` and to the block the host
+               sampler built (its order is first occurrence); its
+               CUDA-event median beside the NumPy reference's and the
+               sampler's own compaction's wall times.
+15. examples -- ``examples/{quickstart,link_prediction,serve_batched,
+               train_100m_lm}_torch.py --smoke`` on the card, each in a
+               process of its own, all at once: each must exit 0 and print
+               finite losses (the serving example: its greedy tokens'
+               NLL), counted (K1, its backward and K2 must launch).
+16. lm_serve -- the LM serving path (``repro_torch.models.lm``,
                ``repro_torch.launch.serve``), which launches none of
                K1-K6 (every count 0 just after): (a) each of the ten LM
                ids at ``smoke_variant`` width in float32, parameters drawn
@@ -206,7 +234,7 @@ Phases, each of which exits non-zero when it fails:
                before the next; llama3-8b and granite-moe-3b-a800m's
                prefill and 7 decode steps once more under
                ``torch.profiler`` (the card's busy share, its kernels).
-14. lm_train -- the LM training path (``repro_torch.models.lm.steps``,
+17. lm_train -- the LM training path (``repro_torch.models.lm.steps``,
                ``repro_torch.data``, ``launch.train``'s LM branch),
                counted: K2 sums the gradient of the token embedding and of
                each MoE layer's dispatch gather, over the token ids in a
@@ -239,7 +267,7 @@ Phases, each of which exits non-zero when it fails:
                k experts) against its plain version, as phase 4 (the library
                yardstick, ``torch.zeros`` of the output and ``index_add_``
                in one timed call, as K2 writes all of its output).
-15. lm_sharded -- the sharded path (``repro_torch.sharding``, the
+18. lm_sharded -- the sharded path (``repro_torch.sharding``, the
                sharded MoE dispatches, ``launch.dryrun`` /
                ``launch.gnn_dryrun``), counted: (a) in subprocesses
                started first, each on a fake process group of 256 ranks
@@ -263,7 +291,7 @@ Phases, each of which exits non-zero when it fails:
                ``_moe_sharded`` and ``_moe_sharded_a2a`` against
                ``_moe_local``: float32 within rtol = atol = 1e-5, bfloat16
                within ``LM_MOE_BF16_BOUND_U`` u of max |_moe_local|.
-16. report  -- a JSON line of every ported kernel (its times summed over
+19. report  -- a JSON line of every ported kernel (its times summed over
                the layers of one serving tick or training step, the main
                path's shapes, and of one batch-1000 forward and backward
                under ``paper_batch``; its launches on each main path; the
@@ -333,7 +361,7 @@ KERNELS = {
         paths=("serving", "train_graphsage", "train_recover",
                "serving_rgcn", "train_rgcn", "recover_rgcn", "train_lp",
                "train_lp_rgcn", "recover_lp", "offline_graphsage",
-               "offline_rgcn")),
+               "offline_rgcn", "staging_graphsage", "examples")),
     # K2 as `_degrees` (F = 1), as the GAT step's logit gradients (F = 2,
     # keyed by source and by destination), and as the gradients of the
     # link-prediction head's gathers (F = the embedding width)
@@ -343,31 +371,34 @@ KERNELS = {
                             "serving_rgcn", "train_rgcn", "recover_rgcn",
                             "train_lp", "train_lp_rgcn", "recover_lp",
                             "offline_graphsage", "offline_rgcn",
-                            "lm_train", "lm_sharded")),
+                            "lm_train", "lm_sharded", "staging_graphsage",
+                            "staging_lm", "examples")),
     "segment_sum_gat": dict(
         wrapper="segment_sum", source=CSRC + "segment_sum.cu",
-        replaces=K2, paths=("train_gat", "train_lp_gat")),
+        replaces=K2, paths=("train_gat", "train_lp_gat", "staging_gat")),
     "fused_gather_aggregate_bwd": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K1,
         paths=("train_graphsage", "train_recover", "train_rgcn",
-               "recover_rgcn", "train_lp", "train_lp_rgcn", "recover_lp")),
+               "recover_rgcn", "train_lp", "train_lp_rgcn", "recover_lp",
+               "staging_graphsage", "examples")),
     "edge_softmax_stats": dict(
         wrapper="edge_softmax_stats", source=CSRC + "edge_softmax.cu",
-        replaces=K4, paths=("train_gat", "train_lp_gat", "offline_gat")),
+        replaces=K4, paths=("train_gat", "train_lp_gat", "offline_gat",
+                            "staging_gat")),
     "edge_softmax_norm": dict(
         wrapper="edge_softmax_norm", source=CSRC + "edge_softmax.cu",
-        replaces=K4, paths=("train_gat", "train_lp_gat")),
+        replaces=K4, paths=("train_gat", "train_lp_gat", "staging_gat")),
     "fused_edge_softmax_aggregate": dict(
         wrapper="fused_edge_softmax_aggregate",
         source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
-        paths=("train_gat", "train_lp_gat", "offline_gat")),
+        paths=("train_gat", "train_lp_gat", "offline_gat", "staging_gat")),
     "fused_edge_softmax_aggregate_bwd": dict(
         wrapper="fused_edge_softmax_aggregate_bwd",
         source=CSRC + "fused_edge_softmax_aggregate.cu", replaces=K3,
-        paths=("train_gat", "train_lp_gat")),
+        paths=("train_gat", "train_lp_gat", "staging_gat")),
     "fused_edge_softmax_aggregate_bwd_h": dict(
         wrapper="src_scatter", source=CSRC + "src_scatter.cu", replaces=K3,
-        paths=("train_gat", "train_lp_gat")),
+        paths=("train_gat", "train_lp_gat", "staging_gat")),
     "sparse_adam": dict(
         wrapper="sparse_adam", source=CSRC + "sparse_adam.cu",
         replaces="src/repro/kernels/sparse_adam/kernel.py:72",
@@ -474,6 +505,16 @@ LM_SHARDED_DRYRUN_S = 600
 # |_moe_local| in units of u = 2^-8 (two bfloat16 products in other
 # orders; float32 is held to rtol = atol = 1e-5)
 LM_MOE_BF16_BOUND_U = 4
+# the staging ablation: train_graphsage's configuration for 2 epochs (6
+# steps) packed and per array; the loaders' device prefetch over 4 epochs
+# of trainer 0; qwen2-0.5b at full width for 4 steps of 4 x 256 tokens
+STAGING_EPOCHS, STAGING_LOADER_EPOCHS = 2, 4
+STAGING_LM = "qwen2-0.5b"
+STAGING_LM_ARGV = ["--batch-size", "4", "--seq-len", "256", "--steps", "4"]
+# the examples, each at --smoke in a process of its own
+EXAMPLES = ("quickstart_torch", "link_prediction_torch",
+            "serve_batched_torch", "train_100m_lm_torch")
+EXAMPLE_S = 400
 
 
 class SmokeFailure(RuntimeError):
@@ -3287,6 +3328,306 @@ def phase_lm_train(torch, launches: dict, extra: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# slice 14: per-array staging, device-side compaction, the examples
+# ---------------------------------------------------------------------------
+
+def _same_leaves(torch, a, b) -> bool:
+    """Two trees of tensors hold the same keys, dtypes and bytes (a dict's
+    keys in any order: packed staging rebuilds them sorted)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            _same_leaves(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(
+            _same_leaves(torch, x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def staging_run(torch, argv: list, packed: bool) -> dict:
+    """``STAGING_EPOCHS`` epochs of ``launch.train``'s trainer for
+    ``argv`` with ``impl="cuda"``, packed or per array, and a 2-batch
+    evaluation; each ``_stack`` call timed on the host clock up to a
+    synchronize (the step before it ended reading its loss, so the card
+    is idle when it starts)."""
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(
+        argv + ["--device", DEVICE, "--impl", "cuda"]
+        + ([] if packed else ["--no-packed-staging"]))
+    _ds, tr = train.build_trainer(args)
+    require(tr.job.packed_staging == packed,
+            "--no-packed-staging did not reach the job")
+    stack, walls = tr._stack, []
+
+    def timed_stack(batches):
+        t0 = time.perf_counter()
+        out = stack(batches)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr._stack = timed_stack
+    try:
+        epochs = [tr.train_epoch(e) for e in range(STAGING_EPOCHS)]
+        val = tr.evaluate(tr.ds.val_nids, max_batches=2)
+    finally:
+        tr.stop()
+    spans = {k: v / tr.global_step for k, v in tr.spans_ms().items()}
+    return {"losses": [x for m in epochs for x in m["losses"]],
+            "accs": [m["acc"] for m in epochs], "val_acc": val,
+            "trainer": tr, "stack_ms": walls, "spans": spans}
+
+
+def staging_loader(torch, tr, packed: bool) -> tuple:
+    """A ``NodeDataLoader`` with ``device_prefetch`` on trainer 0's seeds
+    at the trainer's batch and fanouts, packed or per array, for
+    ``STAGING_LOADER_EPOCHS`` epochs -> (the first batch's staged
+    ``model_input()``, the device-prefetch stage's busy us a batch, the
+    batches it staged)."""
+    from repro_torch.api import NodeDataLoader
+
+    seeds = tr.trainer_seeds[0]
+    ld = NodeDataLoader(tr.graph.trainer_view(0), seeds, tr.cfg.fanouts,
+                        batch_size=tr.cfg.batch_size,
+                        labels=tr.labels_new[seeds], device_prefetch=True,
+                        packed_staging=packed, device=DEVICE, seed=7,
+                        sampler_seed=8)
+    first = None
+    with ld:
+        for e in range(STAGING_LOADER_EPOCHS):
+            for b in ld.epoch(e):
+                if first is None:
+                    first = b.model_input()
+        st = ld.stats_report()["stages"]["device_prefetch"]
+    return first, st["busy_s"] / max(st["items"], 1) * 1e6, st["items"]
+
+
+def staging_gnn(torch, arch: str, launches: dict, smi: str) -> None:
+    """GraphSAGE or GAT at ``train_graphsage``'s configuration, packed and
+    then per array (counted): equal losses, accuracies and final
+    parameter bytes; stack_stage ms a step and the loaders'
+    device-prefetch us a batch for both modes."""
+    import math
+
+    from repro_torch.optim.optimizers import tree_leaves
+
+    argv = ["--arch", arch, "--scale", str(SCALE), "--batch-size",
+            str(TRAIN_BATCH)]
+    path = f"staging_{arch}"
+    packed = staging_run(torch, argv, True)
+    per_array, launches[path] = counted(
+        path, lambda: staging_run(torch, argv, False))
+    a, b = packed["trainer"], per_array["trainer"]
+    require(packed["losses"] == per_array["losses"]
+            and packed["accs"] == per_array["accs"]
+            and packed["val_acc"] == per_array["val_acc"]
+            and _same_leaves(torch, a.params, b.params),
+            f"{path}: per-array staging changed the run: losses "
+            f"{per_array['losses']} against {packed['losses']}")
+    log(f"[{path}] {arch} at train_graphsage's configuration ({a.num_trainers}"
+        f" trainers x batch {a.cfg.batch_size}, product-sim scale {SCALE}, "
+        f"impl='cuda'), {len(packed['losses'])} steps: losses "
+        f"{packed['losses']}, accuracies {packed['accs']}, val_acc "
+        f"{packed['val_acc']:.4f} and every parameter bitwise equal packed "
+        f"and per array ({sum(p.numel() for p in tree_leaves(a.params))} "
+        f"values)")
+    modes = {}
+    for name, run in (("packed", packed), ("per_array", per_array)):
+        first, busy_us, items = staging_loader(torch, run["trainer"],
+                                               name == "packed")
+        modes[name] = first
+        sp = run["spans"]
+        log(f"[{path}] {name}: stack_stage {statistics.median(run['stack_ms']):.3f} "
+            f"ms a step (median of {len(run['stack_ms'])}, host clock to a "
+            f"synchronize; each {[round(x, 3) for x in run['stack_ms']]}), "
+            f"the span {sp['stack_stage']:.3f} ms a step (host) and "
+            f"{sp.get('device_stack_stage', math.nan):.3f} ms (CUDA events); "
+            f"the loader's "
+            f"device_prefetch {busy_us:.1f} us a batch (mean of {items} "
+            f"batches of trainer 0) on {smi}")
+    require(_same_leaves(torch, modes["packed"], modes["per_array"]),
+            f"{path}: the loaders' staged batches differ packed and per "
+            f"array")
+
+
+def staging_lm(torch, launches: dict, smi: str) -> None:
+    """``launch.train --arch qwen2-0.5b`` at full width packed, with
+    ``--no-packed-staging`` (counted) and packed again: the same
+    ``[step]`` lines, losses, gradient norms and final parameters; the
+    first run warms the card up, so the times compared are the last
+    two's."""
+    import io
+
+    from repro_torch.launch import train
+
+    runs = []
+    for packed in (True, False, True):
+        args = train.build_parser().parse_args(
+            ["--arch", STAGING_LM, "--device", DEVICE, *STAGING_LM_ARGV]
+            + ([] if packed else ["--no-packed-staging"]))
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return train.run_lm(args)
+
+        if packed:
+            out = run()
+        else:
+            out, launches["staging_lm"] = counted("staging_lm", run)
+        lines = [x for x in buf.getvalue().splitlines()
+                 if x.startswith("[step")]
+        runs.append((out, lines))
+    (a, la), (b, lb), (c, lc) = runs
+    for x, lx in ((b, lb), (c, lc)):
+        require(la and la == lx and a["loss"] == x["loss"]
+                and a["grad_norm"] == x["grad_norm"]
+                and _same_leaves(torch, a["params"], x["params"]),
+                f"staging_lm: the runs differ: {lx} against {la}")
+    log(f"[staging_lm] {STAGING_LM} {' '.join(STAGING_LM_ARGV)}: the same "
+        f"step lines {la}, losses {a['loss']}, gradient norms and final "
+        f"parameters packed, per array and packed; {b['ms_per_step']:.3f} "
+        f"ms a step per array against {c['ms_per_step']:.3f} packed (the "
+        f"second and third runs; the first, packed, "
+        f"{a['ms_per_step']:.3f}, warms the card up) on {smi}")
+    del runs, a, b, c
+    torch.cuda.empty_cache()
+
+
+def phase_staging(torch, launches: dict, smi: str) -> None:
+    """The per-array staging ablation against packed staging: GraphSAGE
+    and GAT training, the loaders' device prefetch, and the LM stream."""
+    t0 = time.perf_counter()
+    for arch in ("graphsage", "gat"):
+        staging_gnn(torch, arch, launches, smi)
+        torch.cuda.empty_cache()
+    staging_lm(torch, launches, smi)
+    log(f"[staging] phase {time.perf_counter() - t0:.2f} s")
+
+
+def phase_compaction(torch, g, cfg, smi: str) -> None:
+    """``to_block_device`` on the card on each layer of one batch at the
+    paper's config, against ``to_block_reference`` on the live entries
+    and against the block the host sampler built (first-occurrence
+    order); its CUDA-event median beside the NumPy reference's and the
+    sampler's own compaction's wall times."""
+    from repro_torch.core.sampler import (DistributedSampler,
+                                          sample_ego_networks,
+                                          to_block_device,
+                                          to_block_reference)
+
+    t0 = time.perf_counter()
+    sampler = DistributedSampler(g.book, g.partitions, cfg.fanouts,
+                                 cfg.batch_size, machine=g.machine,
+                                 transport=None, seed=0)
+    seeds = np.random.default_rng(0).choice(g.num_nodes(), cfg.batch_size,
+                                            replace=False)
+    mb = next(sample_ego_networks(sampler, g.new_client(), g.feat_name,
+                                  seeds, drop_last=False))
+    for layer, b in enumerate(mb.blocks):
+        cap_dst = b.cap_src - b.cap_edge
+        host = (b.src_gids[:cap_dst], np.arange(cap_dst) < b.num_dst,
+                b.src_gids[b.edge_src], b.edge_mask)
+        dev = [torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE)
+               for x in host]
+        u, n, es = (x.cpu().numpy() for x in
+                    to_block_device(*dev, b.cap_src))
+        n = int(n)
+        t1 = time.perf_counter()
+        u_r, n_r, es_r = to_block_reference(*host, b.cap_src)
+        ref_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        DistributedSampler._compact(host[0][host[1]], host[2][host[3]])
+        host_s = time.perf_counter() - t1
+        em = b.edge_mask
+        require(n == n_r == b.num_src
+                and np.array_equal(u[:n], u_r[:n])
+                and np.array_equal(u[:n], b.src_gids[:n])
+                and np.array_equal(es[em], es_r[em])
+                and np.array_equal(es[em], b.edge_src[em]),
+                f"compaction layer {layer}: to_block_device differs from "
+                f"to_block_reference or from the sampler's block")
+        ms = cuda_ms(torch, lambda: to_block_device(*dev, b.cap_src))
+        log(f"[compaction] layer {layer}: {cap_dst} seeds ({b.num_dst} "
+            f"live), {b.cap_edge} edges ({int(em.sum())} live), "
+            f"{cap_dst + b.cap_edge} ids -> {n} unique: every live entry "
+            f"equal to to_block_reference and to the sampler's block; "
+            f"to_block_device {ms:.4f} ms on the card (CUDA-event median of "
+            f"{REPS}, L2 flushed) against to_block_reference "
+            f"{ref_s * 1e3:.1f} ms and the sampler's host compaction "
+            f"{host_s * 1e3:.3f} ms (host clock, one call each) on {smi}")
+        del dev
+    log(f"[compaction] phase {time.perf_counter() - t0:.2f} s")
+
+
+_EXAMPLE = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import CUDA_WRAPPERS
+path = sys.argv[2]
+for w in CUDA_WRAPPERS.values():
+    w.launches = 0
+sys.argv = [path, "--smoke"]
+runpy.run_path(path, run_name="__main__")
+print(json.dumps({n: w.launches for n, w in CUDA_WRAPPERS.items()}))
+"""
+
+
+def phase_examples(torch, launches: dict, smi: str) -> None:
+    """The four ``examples/*_torch.py`` at ``--smoke`` on the card, each in
+    a process of its own, all at once: each must exit 0 and print finite
+    losses (``serve_batched_torch``: its greedy tokens' NLL); the counts of
+    all four are summed into the ``examples`` path's."""
+    import math
+    import re
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE, str(ROOT / "src"),
+                 str(ROOT / "examples" / f"{name}.py")], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        total = {}
+        for name, (start, proc) in procs.items():
+            out, err = proc.communicate(timeout=EXAMPLE_S)
+            wall = time.perf_counter() - start
+            require(proc.returncode == 0,
+                    f"examples/{name}.py --smoke exited {proc.returncode}: "
+                    f"{err[-2000:]}")
+            lines = out.strip().splitlines()
+            counts = json.loads(lines[-1])
+            values = [float(v) for v in re.findall(
+                r"\b(?:loss|nll)=([-+0-9.eEinfa]+)", out)]
+            require(values and all(math.isfinite(v) for v in values),
+                    f"examples/{name}.py: losses {values}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            log(f"[examples] {name} --smoke: exit 0 (done within {wall:.2f} s "
+                f"of the start), "
+                f"losses {values}, launches "
+                f"{ {k: v for k, v in counts.items() if v} }; last lines "
+                f"{lines[-3:-1]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    launches["examples"] = total
+    needed = {m["wrapper"] for m in KERNELS.values()
+              if "examples" in m["paths"]}
+    missing = sorted(w for w in needed if total.get(w, 0) == 0)
+    require(not missing, f"kernels of the examples never launched: "
+                         f"{missing}")
+    log(f"[examples] launches on the path: {json.dumps(total)}; phase "
+        f"{time.perf_counter() - t0:.2f} s on {smi}")
+
+
+# ---------------------------------------------------------------------------
 # the sharded path: the dry-run, the sharded step on a one-rank mesh
 # ---------------------------------------------------------------------------
 
@@ -3764,6 +4105,9 @@ def main() -> int:
     phase_rgcn_untyped(torch)
     phase_link_prediction(torch, launches, extra)
     phase_offline(torch, launches, extra)
+    phase_staging(torch, launches, smi)
+    phase_compaction(torch, g, paper_cfg, smi)
+    phase_examples(torch, launches, smi)
     phase_lm_serve(torch)
     phase_lm_train(torch, launches, extra)
     phase_lm_sharded(torch, launches)

@@ -9,12 +9,14 @@ kernel on a ported path is a hand-written CUDA kernel for Hopper
 asks for ``device="cpu"``.
 
 The public surface is ``repro_torch.api`` (``DistGraph``,
-``NodeDataLoader``, ``EdgeDataLoader``, ``DistEmbedding``,
+``NodeDataLoader``, ``EdgeDataLoader`` and their ``NodeBatch`` /
+``EdgeBatch`` items, ``DistEmbedding``,
 ``DistGNNTrainer``, ``InferenceServer``); its names are re-exported here
 lazily.
 """
 __all__ = ["DistGraph", "DistTensor", "DistEmbedding", "SparseAdamConfig",
-           "NodeDataLoader", "EdgeDataLoader", "DistGNNTrainer",
+           "NodeDataLoader", "EdgeDataLoader", "NodeBatch", "EdgeBatch",
+           "DistGNNTrainer",
            "TrainJobConfig", "InferenceServer", "PredictionHandle",
            "ServerOverloaded", "DeadlineExceeded"]
 

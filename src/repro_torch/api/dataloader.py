@@ -38,6 +38,7 @@ from ..core.pipeline.minibatch import (LinkMinibatchPipeline,
                                        host_blocks)
 from ..core.sampler import (DistributedSampler, EdgeBatchSampler,
                             sample_ego_networks)
+from ..kernels.pack import PackedBatch
 from .dist_graph import DistGraph
 
 __all__ = ["NodeBatch", "NodeDataLoader", "EdgeBatch", "EdgeDataLoader"]
@@ -53,7 +54,9 @@ class NodeBatch:
 
     def __init__(self, minibatch, device=None):
         self.minibatch = minibatch
-        self.device = device   # the staged PackedBatch, if device_prefetch
+        # the staged batch, if device_prefetch: a PackedBatch, or with
+        # packed_staging=False a tree of one tensor an array
+        self.device = device
 
     def __iter__(self):
         return iter((self.input_nodes, self.seeds, self.blocks))
@@ -73,16 +76,17 @@ class NodeBatch:
     def model_input(self, packed: bool = False):
         """The dict the training step consumes: host arrays, or the staged
         tensors when the loader has ``device_prefetch``. ``packed=True``
+        (needs ``device_prefetch=True`` with ``packed_staging=True``)
         returns the staged :class:`~repro_torch.kernels.pack.PackedBatch`
         itself (one arena on the device)."""
         if packed:
-            if self.device is None:
-                raise ValueError("packed model_input needs a loader built "
-                                 "with device_prefetch=True")
+            if not isinstance(self.device, PackedBatch):
+                raise ValueError(
+                    "packed model_input needs a loader built with "
+                    "device_prefetch=True and packed_staging=True")
             return self.device
         if self.device is not None:
-            tree = self.device.unpack()
-            return {k: tree[k] for k in self._model_keys}
+            return {k: self.device[k] for k in self._model_keys}
         return self._host_input()
 
     def _host_input(self) -> dict:
@@ -232,7 +236,9 @@ class NodeDataLoader(_BaseLoader):
     ``batch_size`` seeds per batch, ``labels`` aligned with ``nids``
     (host-resident), optional per-trainer hot-vertex ``cache``
     (:meth:`DistGraph.feature_cache`), ``sample_workers`` pool threads,
-    ``device_prefetch`` to stage batches on ``device`` from the pipeline.
+    ``device_prefetch`` to stage batches on ``device`` from the pipeline
+    (``packed_staging=False``: one copy an array instead of one packed
+    arena; the same bytes on the device).
     ``seed`` drives the epoch schedule + pipeline, and ``sampler_seed``
     the neighbor draws (defaults keep them disjoint).
 
@@ -244,7 +250,8 @@ class NodeDataLoader(_BaseLoader):
     def __init__(self, g: DistGraph, nids: np.ndarray, fanouts, *,
                  batch_size: int, labels: Optional[np.ndarray] = None,
                  shuffle: bool = True, sample_workers: int = 1,
-                 cache=None, device_prefetch: bool = False, device="cuda",
+                 cache=None, device_prefetch: bool = False,
+                 packed_staging: bool = True, device="cuda",
                  sync: bool = False, non_stop: bool = True,
                  depths: Optional[dict] = None, seed: int = 0,
                  sampler_seed: Optional[int] = None, mode: str = "train"):
@@ -266,9 +273,9 @@ class NodeDataLoader(_BaseLoader):
             self.pipeline = NodeMinibatchPipeline(
                 self.sampler, self._client, g.feat_name, self.nids,
                 labels=labels, sync=sync, non_stop=non_stop, depths=depths,
-                to_device=device_prefetch, device=device, seed=seed,
-                typed=g.typed, cache=cache, sample_workers=sample_workers,
-                shuffle=shuffle)
+                to_device=device_prefetch, packed=packed_staging,
+                device=device, seed=seed, typed=g.typed, cache=cache,
+                sample_workers=sample_workers, shuffle=shuffle)
 
     def __len__(self) -> int:
         if self.pipeline is not None:
@@ -310,8 +317,8 @@ class EdgeDataLoader(_BaseLoader):
                  batch_size: int, num_negs: int = 16,
                  neg_mode: str = "uniform", neg_exclude: bool = False,
                  sample_workers: int = 1, cache=None,
-                 device_prefetch: bool = False, device="cuda",
-                 sync: bool = False, non_stop: bool = True,
+                 device_prefetch: bool = False, packed_staging: bool = True,
+                 device="cuda", sync: bool = False, non_stop: bool = True,
                  depths: Optional[dict] = None, seed: int = 0,
                  sampler_seed: Optional[int] = None,
                  edge_seed: Optional[int] = None, mode: str = "train"):
@@ -346,8 +353,8 @@ class EdgeDataLoader(_BaseLoader):
             self.pipeline = LinkMinibatchPipeline(
                 self.edge_sampler, self._client, g.feat_name, sync=sync,
                 non_stop=non_stop, depths=depths, to_device=device_prefetch,
-                device=device, seed=seed, typed=g.typed, cache=cache,
-                sample_workers=sample_workers)
+                packed=packed_staging, device=device, seed=seed,
+                typed=g.typed, cache=cache, sample_workers=sample_workers)
 
     def __len__(self) -> int:
         return self.edge_sampler.batches_per_epoch

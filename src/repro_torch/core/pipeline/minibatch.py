@@ -11,7 +11,8 @@ of ``repro/core/pipeline/minibatch.py``'s node pipeline, built on
      remote KVStore) into one contiguous buffer (sampling thread);
   4. **device prefetch** -- stage the padded arrays on ``device`` with one
      packed copy (:func:`~repro_torch.kernels.pack.device_stage`; depth 1:
-     device memory is scarce);
+     device memory is scarce), or with ``packed=False`` one copy an array
+     (the staging ablation baseline; the same bytes on the device);
   5. **subgraph compaction** -- runs on the device in the consumer's
      thread, inside the training step.
 
@@ -73,7 +74,8 @@ def _epoch_schedule(seeds: np.ndarray, labels: Optional[np.ndarray],
 
 class NodeMinibatchPipeline:
     """The node mini-batch pipeline. ``to_device`` adds the device-prefetch
-    stage, which stages each batch on ``device``."""
+    stage, which stages each batch on ``device``: one packed arena, or one
+    tensor an array with ``packed=False``."""
 
     def __init__(self, sampler: DistributedSampler, kv_client: KVClient,
                  feat_name: str, seeds: np.ndarray,
@@ -81,7 +83,8 @@ class NodeMinibatchPipeline:
                  batch_size: Optional[int] = None,
                  depths: dict | None = None,
                  sync: bool = False, non_stop: bool = True,
-                 to_device: bool = True, device="cuda", seed: int = 0,
+                 to_device: bool = True, packed: bool = True,
+                 device="cuda", seed: int = 0,
                  typed=None, cache=None, sample_workers: int = 1,
                  shuffle: bool = True):
         self.sampler = sampler
@@ -106,6 +109,7 @@ class NodeMinibatchPipeline:
         self.sync = sync
         self.non_stop = non_stop
         self.to_device = to_device
+        self.packed = packed
         self.device = device
         # counter-based schedule randomness: each epoch's permutation
         # derives from (seed, epoch) so schedules are replayable and
@@ -147,7 +151,7 @@ class NodeMinibatchPipeline:
         tree = dict(input_feats=mb.input_feats, seeds=mb.seeds,
                     seed_mask=mb.seed_mask, labels=mb.labels,
                     blocks=host_blocks(mb))
-        return mb, device_stage(tree, self.device)
+        return mb, device_stage(tree, self.device, packed=self.packed)
 
     # ---- driving ------------------------------------------------------
     def _epoch_rng(self, epoch: int) -> np.random.Generator:
@@ -280,7 +284,8 @@ class LinkMinibatchPipeline(NodeMinibatchPipeline):
     def _stage_device_prefetch(self, emb: EdgeMiniBatch):
         if not self.to_device:
             return emb
-        return emb, device_stage(edge_model_tree(emb), self.device)
+        return emb, device_stage(edge_model_tree(emb), self.device,
+                                 packed=self.packed)
 
     # ---- driving ------------------------------------------------------
     def _schedule_source(self, epochs: Iterator[int], start_batch: int = 0):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core.pipeline import AsyncPipeline, Stage
-from ..kernels.pack import host_stage
+from ..kernels.pack import device_stage, host_stage
 
 
 def _synthetic_tokens(rng: np.random.Generator, vocab: int, n: int,
@@ -121,8 +121,7 @@ class TokenStream:
             # LM steps index the dict directly: a flat mapping of views
             # into the one staged arena
             return batch.to(self.device).unpack()
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items()}
+        return device_stage(batch, self.device, packed=False)
 
     # ---- iteration ----------------------------------------------------
     def __iter__(self):

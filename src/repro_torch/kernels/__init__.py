@@ -28,9 +28,10 @@ from .fused_gather_aggregate import (FusedGatherAggregate,
                                      fused_gather_aggregate_cuda,
                                      fused_gather_aggregate_ref)
 from .gather import gather_rows, gather_rows_cuda, gather_rows_ref
-from .pack import PackSpec, PackedBatch, device_stage, pack, unpack
-from .segment_sum import (gather_edges, keyed_rows, segment_sum,
-                          segment_sum_cuda, segment_sum_ref)
+from .pack import (PackSpec, PackedBatch, device_stage, pack, unpack,
+                   unpack_flat)
+from .segment_sum import (gather_edges, keyed_rows, segment_max_ref,
+                          segment_sum, segment_sum_cuda, segment_sum_ref)
 from .sparse_adam import (StagingArena, sparse_adam_apply, sparse_adam_cuda,
                           sparse_adam_ref, sparse_adam_staged)
 from .src_scatter import src_scatter_cuda, src_scatter_ref
@@ -49,8 +50,10 @@ __all__ = ["EdgeGroups", "dst_groups", "edge_groups", "src_groups",
            "StagingArena", "sparse_adam_apply", "sparse_adam_cuda",
            "sparse_adam_ref", "sparse_adam_staged",
            "gather_edges", "keyed_rows", "segment_sum", "segment_sum_cuda",
-           "segment_sum_ref", "src_scatter_cuda", "src_scatter_ref",
+           "segment_sum_ref", "segment_max_ref", "src_scatter_cuda",
+           "src_scatter_ref",
            "PackSpec", "PackedBatch", "device_stage", "pack", "unpack",
+           "unpack_flat",
            "CUDA_WRAPPERS"]
 
 # every kernel wrapper, by the name chip_smoke.py reports it under; each

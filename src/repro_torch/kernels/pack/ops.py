@@ -14,6 +14,9 @@ for the same tree.
 ``non_blocking`` host-to-device copy, and unpacks on the device with
 ``view(dtype)`` slices at the static offsets. No arithmetic touches the
 payload; the bool segment is a ``view(torch.bool)`` of its 0/1 bytes.
+``device_stage(..., packed=False)`` is the reference's per-array
+ablation baseline: one copy per leaf from pageable host memory, with the
+same casts, so both give the same bytes on the device.
 """
 from __future__ import annotations
 
@@ -64,6 +67,10 @@ class PackSpec:
         for _, _, dt, off, size in self.layout:
             sizes[dt] = off + size
         return sizes
+
+    @property
+    def num_buffers(self) -> int:
+        return len(self.buffer_sizes)
 
     @functools.cached_property
     def arena_layout(self) -> Tuple[Tuple[str, int, int], ...]:
@@ -125,15 +132,20 @@ def unflatten_tree(flat: Dict[str, Any], none_paths: Tuple[str, ...] = ()
     return rebuild(root)
 
 
-def stack_trees(trees: list) -> Any:
-    """Leaf-wise ``np.stack`` of identically structured host trees: the
-    host side of staging several batches on one leading axis."""
+def stack_trees(trees: list, stack=np.stack) -> Any:
+    """Leaf-wise ``stack`` of identically structured trees (``None`` leaves
+    stay ``None``): with ``np.stack``, the host side of staging several
+    batches on one leading axis; with ``torch.stack``, per-array staging's
+    stack on the device."""
     first = trees[0]
+    if first is None:
+        return None
     if isinstance(first, dict):
-        return {k: stack_trees([t[k] for t in trees]) for k in first}
+        return {k: stack_trees([t[k] for t in trees], stack) for k in first}
     if isinstance(first, (list, tuple)):
-        return [stack_trees([t[i] for t in trees]) for i in range(len(first))]
-    return np.stack(trees)
+        return [stack_trees([t[i] for t in trees], stack)
+                for i in range(len(first))]
+    return stack(trees)
 
 
 @functools.lru_cache(maxsize=256)
@@ -210,6 +222,9 @@ class PackedBatch:
             self._tree = unpack(self.spec, self.arena)
         return self._tree
 
+    def __getitem__(self, key: str) -> Any:
+        return self.unpack()[key]
+
     def total_bytes(self) -> int:
         return self.spec.total_bytes()
 
@@ -235,9 +250,35 @@ def host_stage(tree: Any, pin: bool) -> PackedBatch:
     return PackedBatch(spec, host, host)
 
 
-def device_stage(tree: Any, device) -> PackedBatch:
-    """Pack ``tree`` into a host arena (pinned when ``device`` is a card)
-    and stage it with ONE ``non_blocking`` copy; on the CPU the host arena
-    is the staged arena."""
+def _stage_leaf(x, device: torch.device) -> torch.Tensor:
+    # the staging cast makes the host copy; the card's copy is a second,
+    # from pageable memory, as the reference's per-leaf device_put
+    arr = np.asarray(x)
+    host = torch.from_numpy(np.array(arr, dtype=_canon_dtype(arr.dtype)))
+    return host.to(device)
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    """``fn`` over every array leaf of a nested dict/list/tuple tree,
+    ``None`` leaves passed through."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def device_stage(tree: Any, device, packed: bool = True):
+    """Stage ``tree`` on ``device``. ``packed=True``: pack it into a host
+    arena (pinned when ``device`` is a card) and stage it with ONE
+    ``non_blocking`` copy -> :class:`PackedBatch`; on the CPU the host
+    arena is the staged arena. ``packed=False``: the per-array ablation
+    baseline -> the same tree with one tensor per leaf, each cast as the
+    arena casts it and copied on its own (``None`` leaves passed
+    through)."""
     device = torch.device(device)
+    if not packed:
+        return _map_leaves(lambda x: _stage_leaf(x, device), tree)
     return host_stage(tree, pin=device.type == "cuda").to(device)

@@ -43,7 +43,8 @@ MRR and Hits@10 over held-out candidates::
 An LM arch id trains ``--steps`` steps of ``make_train_step`` on the
 synthetic token stream (``--batch-size`` sequences of ``--seq-len``
 tokens, AdamW at ``--lr``); ``--smoke`` takes the reduced same-family
-config::
+config. ``--no-packed-staging`` stages each batch array on its own (the
+staging ablation baseline, GNN and LM alike; the bytes do not change)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
         --smoke --steps 20 --device cpu
@@ -138,6 +139,7 @@ def build_trainer(args):
         task=args.task, num_negs=args.num_negs, score_fn=args.score_fn,
         neg_mode=args.neg_mode, neg_exclude=args.neg_exclude,
         sample_workers=args.sample_workers, impl=args.impl,
+        packed_staging=not args.no_packed_staging,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_interval=args.checkpoint_interval,
         fault_injector=injector,
@@ -263,7 +265,8 @@ def run_lm(args, cfg=None) -> dict:
     step = make_train_step(cfg, lr=args.lr)
     params, opt = init_train_state(cfg, seed=0, device=device)
     stream = TokenStream(vocab=cfg.vocab_size, batch=args.batch_size,
-                         seq=args.seq_len, seed=0, cfg=cfg, device=device)
+                         seq=args.seq_len, seed=0, cfg=cfg, device=device,
+                         packed=not args.no_packed_staging)
     metrics = []
     t0 = time.time()
     try:
@@ -353,6 +356,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="kernels for the GNN aggregations (auto = the CUDA "
                          "kernels on the card, the plain versions on the "
                          "CPU; default keeps the model config's choice)")
+    ap.add_argument("--no-packed-staging", action="store_true",
+                    help="ship each batch array to the device separately "
+                         "instead of the packed single-copy staging "
+                         "(bytes are identical either way)")
     ap.add_argument("--sample-workers", type=int, default=1,
                     help="sampling-stage worker threads per trainer "
                          "(batches are byte-identical for any value)")

@@ -67,7 +67,8 @@ TASKS = ("node_classification", "link_prediction")
 # the same marks (CUDA events)
 HOST_SPANS = ("wait_loaders", "stack_stage", "forward", "backward",
               "optimizer", "read_loss")
-DEVICE_SPANS = ("device_forward", "device_backward", "device_optimizer")
+DEVICE_SPANS = ("device_stack_stage", "device_forward", "device_backward",
+                "device_optimizer")
 
 
 @dataclasses.dataclass
@@ -85,6 +86,11 @@ class TrainJobConfig:
     # sampling-stage worker pool per trainer (§5.5's multiple sampling
     # workers); batches are byte-identical for any value
     sample_workers: int = 1
+    # device staging: True = the stacked step batch is packed into one
+    # pinned host arena and staged with ONE copy; False = the per-array
+    # ablation baseline, one copy a trainer's leaf, stacked on the device.
+    # The bytes reaching the step are identical.
+    packed_staging: bool = True
     # kernel implementation for the model's aggregations (GNNConfig.impl):
     # None keeps the model config's own choice ("auto": the CUDA kernels
     # on the card, the plain versions on the CPU); "ref" / "cuda" force
@@ -300,10 +306,23 @@ class DistGNNTrainer:
         self.spans = _Spans(self.device.type == "cuda")
 
     # ------------------------------------------------------------------
+    def _stage(self, tree: dict) -> dict:
+        """One host batch on the device, packed or per array as the job
+        says."""
+        if self.job.packed_staging:
+            return device_stage(tree, self.device).unpack()
+        return device_stage(tree, self.device, packed=False)
+
     def _stack(self, batches: List[dict]) -> dict:
-        """Stack the T trainers' host batches on a leading axis in host
-        memory and stage them on the device with ONE packed copy."""
-        return device_stage(stack_trees(batches), self.device).unpack()
+        """Stack the T trainers' host batches on a leading axis and stage
+        them on the device. Packed staging stacks in host memory and makes
+        ONE copy of the whole step's input; the per-array path copies each
+        trainer's leaf on its own and stacks on the device. The device
+        bytes are identical either way."""
+        if self.job.packed_staging:
+            return self._stage(stack_trees(batches))
+        return stack_trees([device_stage(b, self.device, packed=False)
+                            for b in batches], torch.stack)
 
     def _lp_scores(self, params, batch: dict, cfg: GNNConfig):
         """Embeddings -> (pos, neg) scores; shared by training and
@@ -397,7 +416,7 @@ class DistGNNTrainer:
             batches = [next(it).model_input() for it in iters]
             spans.mark("wait_loaders")
             stacked = self._stack(batches)
-            spans.mark("stack_stage")
+            spans.mark("stack_stage", device=True)
             loss, acc = self.train_step(stacked)
             losses.append(float(loss))
             accs.append(float(acc))
@@ -445,8 +464,7 @@ class DistGNNTrainer:
             edge_seed=self.job.seed + seed)
         with loader:
             for batch in itertools.islice(loader, num_batches):
-                staged = device_stage(batch.model_input(),
-                                      self.device).unpack()
+                staged = self._stage(batch.model_input())
                 pos, neg = self._lp_scores(self.params, staged, eval_cfg)
                 yield batch, pos, neg
 
@@ -492,8 +510,7 @@ class DistGNNTrainer:
         accs = []
         with loader:
             for batch in itertools.islice(loader, max_batches):
-                staged = device_stage(batch.model_input(),
-                                      self.device).unpack()
+                staged = self._stage(batch.model_input())
                 logits = apply_gnn(self.cfg, self.params, staged,
                                    etype_id=self.etype_id)
                 accs.append(float(nc_accuracy(logits, staged["labels"],

@@ -341,9 +341,11 @@ def test_typed_checkpoint_round_trips_features_caches_and_versions(
     """Every per-node-type feature tensor (``feat:<ntype>``, saved as
     ``feat__<ntype>``) of every shard, every trainer's typed cache
     snapshot and the version tables come back byte for byte into a fresh
-    trainer."""
+    trainer. Both run ``sync=True``: with the async pipeline the loaders'
+    threads go on prefetching (and filling the caches) after the
+    checkpoint, so the snapshot taken below would race them."""
     ck = str(tmp_path / "ck")
-    tr = _chaos_trainer(ds)
+    tr = _chaos_trainer(ds, sync=True)
     tr.train_epoch(0)
     tr.save_checkpoint(ck, epoch=1, batch_index=0)
     names = sorted(tr.store._meta)
@@ -368,7 +370,7 @@ def test_typed_checkpoint_round_trips_features_caches_and_versions(
     params = _pbytes(tr.params)
     tr.stop()
 
-    fresh = _chaos_trainer(ds)
+    fresh = _chaos_trainer(ds, sync=True)
     fresh.recover(ck)
     assert _pbytes(fresh.params) == params
     assert {n: fresh.store.gather_all(n).tobytes() for n in names} == shards

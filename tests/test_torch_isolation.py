@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
-the port imports with JAX made unimportable, and ``chip_smoke.py`` fails
+"""The port stands alone: no module of ``src/repro_torch``, no
+``examples/*_torch.py`` and not ``chip_smoke.py`` imports JAX or anything
+of the JAX package ``repro``, the port imports with JAX made unimportable
+and exports the reference's public names, and ``chip_smoke.py`` fails
 (and prints no result) where there is no card or no repo around it."""
 import ast
 import os
@@ -12,8 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -64,6 +65,34 @@ def test_port_imports_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def _reference_all(path: Path) -> list:
+    """The names of a reference module's ``__all__`` literal, read
+    without importing it."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path} has no __all__")
+
+
+@pytest.mark.parametrize("module", ["", "kernels", "core.sampler"])
+def test_port_exports_the_reference_public_names(module):
+    """Every name of the reference's ``__all__`` but the ``*_pallas`` entry
+    points (the port's kernels are ``*_cuda``)."""
+    import importlib
+
+    rel = Path(*module.split(".")) if module else Path()
+    names = _reference_all(ROOT / "src" / "repro" / rel / "__init__.py")
+    port = importlib.import_module(
+        "repro_torch" + (f".{module}" if module else ""))
+    want = [n for n in names if not n.endswith("_pallas")]
+    missing = [n for n in want if not hasattr(port, n)]
+    assert not missing, f"repro_torch.{module} lacks {missing}"
+    assert set(want) <= set(port.__all__)
 
 
 def _run_smoke(cwd: Path):
