@@ -221,7 +221,17 @@ Phases, each of which exits non-zero when it fails:
                zamba2-7b at full width in float32 (32, 11 and 27 GB of
                weights), prefill 2 x 64 and one decode step within 5e-3
                of the full forward's last positions (with tied
-               embeddings, times max|logit| / 4 above 4); (c)
+               embeddings, times max|logit| / 4 above 4); (d)
+               llama3-8b with (b)'s float32 parameters and ``window=8192``
+               passed as the keyword on a config that sets no window:
+               prefill 1 x 9,216 (the window and 1,024) into a ring of
+               cache_len 8,192 (it wraps inside prefill) and 4 decode
+               steps, each within 5e-3 of ``forward(..., window=8192)``
+               over the 9,220 positions, the unwindowed forward's last
+               prompt logits further off than 5e-3, and the prefill
+               bitwise the one on ``sliding_window=8192``; prefill ms,
+               decode ms a step, the KV cache's bytes against 9,220
+               unwindowed slots, peak GiB and its seconds; (c)
                ``launch.serve`` at full width in bfloat16, greedy, batch
                4, prompt 64, 16 tokens, for every id whose weights fit the
                card (all but qwen3-moe-235b-a22b's 470 GB; qwen3-32b
@@ -455,6 +465,12 @@ LM_TOO_LARGE = ("qwen3-moe-235b-a22b",)
 LM_SERVE_LEFT_OUT = ("qwen3-32b",)
 LM_PROFILED = ("llama3-8b", "granite-moe-3b-a800m")
 LM_DECODE_BOUND = 5e-3
+# (d): llama3-8b's float32 parameters from (b), ``window=`` passed as the
+# keyword on a config that sets no window (``long_500k``'s serving window,
+# LONG_CONTEXT_WINDOW): one prompt of the window and 1,024 tokens, so the
+# ring of cache_len = window slots wraps inside prefill, then 4 steps
+LM_WINDOW_ARCH, LM_WINDOW = "llama3-8b", 8192
+LM_WINDOW_SHAPE = (1, LM_WINDOW + 1024, 4)   # batch, prompt, decode steps
 # (c)'s bfloat16 decode against the full forward in units of u = 2^-8:
 # (largest difference over max |forward|, mean over mean |forward|) for
 # each id, 1.5 times what an H100 showed, rounded up. These are rounding,
@@ -2816,14 +2832,15 @@ def lm_run(torch, cfg, params, batch, steps, cache_len) -> list:
 
 
 def lm_forward_check(torch, cfg, params, batch, steps, logits, what,
-                     bound: float = LM_DECODE_BOUND) -> float:
+                     bound: float = LM_DECODE_BOUND, window=None) -> float:
     """Each of ``lm_run``'s logits against ``forward`` over the prompt and
-    the fed tokens at its position, within ``bound``."""
+    the fed tokens at its position (with ``window=`` where given), within
+    ``bound``."""
     from repro_torch.models.lm import forward
 
     extras = {k: v for k, v in batch.items() if k != "tokens"}
     seq = torch.cat([batch["tokens"]] + list(steps), dim=1)
-    full, _ = forward(cfg, params, seq, **extras)
+    full, _ = forward(cfg, params, seq, window=window, **extras)
     first = full.shape[1] - len(steps) - 1
     err = max(max_err(torch, got, full[:, first + i])
               for i, got in enumerate(logits))
@@ -2864,9 +2881,9 @@ def lm_smoke_parity(torch, arch_id) -> None:
         f"forward {derr:.3e}")
 
 
-def lm_full_f32(torch, cfg) -> None:
+def lm_full_f32(torch, cfg) -> dict:
     """(b): ``cfg`` at full width in float32, prefill and one decode step
-    against the full forward."""
+    against the full forward; returns the parameters."""
     from repro_torch.models.lm import init_params
     from repro_torch.optim.optimizers import tree_leaves
 
@@ -2896,7 +2913,79 @@ def lm_full_f32(torch, cfg) -> None:
         f"{top:.2f}); peak "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
         f"{time.perf_counter() - t0:.2f} s")
-    del params, logits
+    return params
+
+
+def lm_windowed(torch, cfg, params) -> None:
+    """(d): ``window=`` on a config that sets none, at full width in
+    float32 with (b)'s parameters: prefill of one prompt of
+    ``LM_WINDOW_SHAPE`` into a ring of ``LM_WINDOW`` slots (it wraps
+    inside prefill) and 4 decode steps, each within ``LM_DECODE_BOUND`` of
+    ``forward(..., window=LM_WINDOW)`` over the prompt and the fed tokens;
+    the unwindowed forward's last prompt logits further off than that
+    bound; the prefill bitwise the one on the config with the window
+    set."""
+    from repro_torch.models.lm import decode_step, forward, prefill
+
+    require(cfg.sliding_window is None, f"{cfg.name} sets a window")
+    b, s, k = LM_WINDOW_SHAPE
+    w = LM_WINDOW
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (b, s)), device=DEVICE)}
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab_size, (k, b, 1)),
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(cfg, params, batch["tokens"], w, window=w)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    kv_bytes = sum(cache[n].numel() * cache[n].element_size()
+                   for n in ("k", "v"))
+    full_bytes = kv_bytes // w * (s + k)      # an unwindowed ring of s + k
+    same, wcache = prefill(dataclasses.replace(cfg, sliding_window=w),
+                           params, batch["tokens"], w)
+    require(torch.equal(same, logits) and all(
+        torch.equal(cache[n], wcache[n]) for n in ("k", "v")),
+        f"lm {cfg.name}: prefill(window={w}) is not bitwise the config "
+        f"with sliding_window={w}")
+    del same, wcache
+    prefill_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = [logits]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for tok in steps:
+        logits, cache = decode_step(cfg, params, cache, tok, window=w)
+        out.append(logits)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / k
+    require(all(bool(torch.isfinite(x).all()) for x in out),
+            f"lm {cfg.name} window {w}: logits not finite")
+    del cache
+    err = lm_forward_check(torch, cfg, params, batch, steps, out,
+                           f"lm {cfg.name} window {w}", window=w)
+    full, _ = forward(cfg, params, batch["tokens"])
+    off = max_err(torch, out[0], full[:, -1])
+    del full
+    require(off > LM_DECODE_BOUND,
+            f"lm {cfg.name}: window {w} left the last prompt logits within "
+            f"{off:.3e} of the unwindowed forward's")
+    log(f"[lm_serve] (d) {cfg.name} full width float32, window={w} as the "
+        f"keyword (config window {cfg.sliding_window}), cache_len {w}: "
+        f"prefill {b}x{s} {prefill_ms:.3f} ms, {k} decode steps "
+        f"{decode_ms:.3f} ms a step; decode vs forward(window={w}) max abs "
+        f"err {err:.3e} (bound {LM_DECODE_BOUND:.3e}); unwindowed forward "
+        f"off by {off:.3e}; prefill bitwise the config with "
+        f"sliding_window={w}; KV cache {kv_bytes} B against {full_bytes} B "
+        f"unwindowed ({s + k} slots); peak {prefill_peak / 2 ** 30:.2f} "
+        f"GiB over the two prefills, "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB over decode "
+        f"and the two forwards; {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
 
 
@@ -2986,8 +3075,8 @@ def lm_profile(torch, cfg, shape, steps: int = 8) -> None:
 
 
 def phase_lm_serve(torch) -> None:
-    """(a), (b) and (c), with every kernel count 0 just before and read
-    just after: the LM path launches none of K1-K6."""
+    """(a), (b), (d) and (c), with every kernel count 0 just before and
+    read just after: the LM path launches none of K1-K6."""
     import dataclasses as dc
 
     from repro_torch.configs import ARCH_IDS, get_config
@@ -3004,7 +3093,13 @@ def phase_lm_serve(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     for arch_id in LM_F32_ARCHS:
-        lm_full_f32(torch, dc.replace(get_config(arch_id), dtype="float32"))
+        cfg = dc.replace(get_config(arch_id), dtype="float32")
+        params = lm_full_f32(torch, cfg)
+        if arch_id == LM_WINDOW_ARCH:
+            lm_windowed(torch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     for arch_id in ARCH_IDS:
         cfg = get_config(arch_id)
         need = cfg.param_count() * torch_dtype(cfg.dtype).itemsize

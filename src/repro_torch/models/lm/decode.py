@@ -149,11 +149,14 @@ def _mamba_prefill(cfg, bp, h):
 
 @torch.no_grad()
 def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-            cache_len: int, *, image_embeds=None, encoder_embeds=None
-            ) -> tuple:
+            cache_len: int, *, image_embeds=None, encoder_embeds=None,
+            window: Optional[int] = None) -> tuple:
     """Run the full prompt, build the serve cache.
-    Returns (last-position logits (B, padded_vocab), cache)."""
-    window = cfg.sliding_window
+    Returns (last-position logits (B, padded_vocab), cache).
+
+    ``window`` overrides the config's sliding window for this call; the
+    ring keeps the last ``cache_len`` positions whatever the window."""
+    window = window if window is not None else cfg.sliding_window
     x = _lookup(params["embed"], tokens)
     if cfg.arch_type == "vlm":
         x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
@@ -249,11 +252,13 @@ def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(cfg: LMConfig, params: dict, cache: dict,
-                tokens: torch.Tensor) -> tuple:
+                tokens: torch.Tensor, *, window: Optional[int] = None
+                ) -> tuple:
     """tokens: (B, 1) the token generated at position cache['pos'].
     Returns (logits (B, padded_vocab) for the next position, the cache,
-    updated in place)."""
-    window = cfg.sliding_window
+    updated in place). ``window`` overrides the config's sliding window
+    for this step."""
+    window = window if window is not None else cfg.sliding_window
     pos = cache["pos"]
     x = _lookup(params["embed"], tokens)            # (B, 1, d)
     b = x.shape[0]

@@ -263,6 +263,13 @@ def project_kv(p: dict, x: torch.Tensor, cfg, positions,
     return k, v
 
 
+def attn_project_qkv(p: dict, x: torch.Tensor, cfg, positions) -> tuple:
+    """x: (B,S,d) -> roped q (B,S,H,hd), k,v (B,S,KV,hd)."""
+    q = project_q(p, x, cfg, positions)
+    k, v = project_kv(p, x, cfg, positions)
+    return q, k, v
+
+
 def attn_block(p: dict, x: torch.Tensor, cfg, *, positions,
                window: Optional[int] = None, causal: bool = True,
                context: Optional[torch.Tensor] = None,
@@ -271,8 +278,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions,
     ``context`` switches to cross-attention (k/v projected from context,
     no rope)."""
     if context is None:
-        q = project_q(p, x, cfg, positions)
-        k, v = project_kv(p, x, cfg, positions)
+        q, k, v = attn_project_qkv(p, x, cfg, positions)
     else:
         q = project_q(p, x, cfg, positions, use_rope=False)
         k, v = project_kv(p, context, cfg, context_positions,

@@ -353,6 +353,7 @@ def lm_head(cfg: LMConfig, params: dict) -> torch.Tensor:
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             encoder_embeds: Optional[torch.Tensor] = None,
+            window: Optional[int] = None,
             return_hidden: bool = False) -> tuple:
     """tokens: (B, S) int -> (logits (B, S_total, padded_vocab),
     aux_loss).
@@ -363,8 +364,13 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
 
     vlm: image_embeds (B, n_img, d) are prepended. audio: encoder_embeds
     (B, S_enc, d) go through the encoder stack, and the decoder
-    cross-attends to them."""
-    window = cfg.sliding_window
+    cross-attends to them.
+
+    ``window`` overrides the config's sliding window for this call (the
+    self-attention of every block; the audio encoder and the
+    cross-attention stay unwindowed). Each rematerialised block takes it
+    as an argument, so its recompute masks as its forward did."""
+    window = window if window is not None else cfg.sliding_window
     x = embed_tokens(params["embed"], tokens)
     if cfg.arch_type == "vlm":
         if image_embeds is None:
@@ -381,10 +387,10 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
         return _mamba_layer(cfg, bp, h)
 
     if at in ("dense", "vlm", "moe"):
-        def dense(bp, h):
+        def dense(bp, h, window):
             return _dense_block(cfg, bp, h, positions, window)
         for bp in unstack(blocks):
-            x, a = _remat(cfg, dense, bp, x)
+            x, a = _remat(cfg, dense, bp, x, window)
             aux_total = aux_total + a
 
     elif at == "ssm":
@@ -392,12 +398,12 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
             x = _remat(cfg, mamba, bp, x)
 
     elif at == "hybrid":
-        def shared(sp, h):
+        def shared(sp, h, window):
             return _shared_attn_block(cfg, sp, h, positions, window)
         for sbp in unstack(blocks):
             for bp in unstack(sbp):
                 x = _remat(cfg, mamba, bp, x)
-            x = _remat(cfg, shared, params["shared"], x)
+            x = _remat(cfg, shared, params["shared"], x, window)
         tail = params.get("tail_blocks")
         for bp in (unstack(tail) if tail is not None else []):
             x = _mamba_layer(cfg, bp, x)        # not rematerialised
@@ -416,11 +422,11 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
                 kind="gelu")))
         enc = rmsnorm(enc, params["enc_norm"], cfg.norm_eps)
 
-        def decoder(bp, h, enc):
+        def decoder(bp, h, enc, window):
             return _audio_decoder_block(cfg, bp, h, positions, window, enc,
                                         enc_pos)
         for bp in unstack(blocks):
-            x = _remat(cfg, decoder, bp, x, enc)
+            x = _remat(cfg, decoder, bp, x, enc, window)
     else:
         raise ValueError(at)
 

@@ -141,14 +141,15 @@ def fit(spec_: tuple, shape) -> tuple:
                   for d, e in enumerate(spec_)))
 
 
-def maybe_constrain(x, spec_: tuple):
-    """``x`` redistributed to ``spec_`` if a mesh is active and ``x`` is a
+def maybe_constrain(x, spec: tuple):
+    """``x`` redistributed to ``spec`` if a mesh is active and ``x`` is a
     DTensor, else ``x``: the reference's ``with_sharding_constraint``
-    points."""
+    points. (The parameter keeps the reference's name and shadows the
+    module's :func:`spec` here, which the body never calls.)"""
     mesh = _active_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return x
-    want = placements(spec_, mesh)
+    want = placements(spec, mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)

@@ -1,9 +1,14 @@
 """The port stands alone: no module of ``src/repro_torch``, no
 ``examples/*_torch.py`` and not ``chip_smoke.py`` imports JAX or anything
 of the JAX package ``repro``, the port imports with JAX made unimportable
-and exports the reference's public names, and ``chip_smoke.py`` fails
-(and prints no result) where there is no card or no repo around it."""
+and exports the reference's public names, every module of the reference
+has its public functions and classes at the same path in the port (each
+function taking the reference's parameter names), and ``chip_smoke.py``
+fails (and prints no result) where there is no card or no repo around
+it."""
 import ast
+import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -93,6 +98,103 @@ def test_port_exports_the_reference_public_names(module):
     missing = [n for n in want if not hasattr(port, n)]
     assert not missing, f"repro_torch.{module} lacks {missing}"
     assert set(want) <= set(port.__all__)
+
+
+REF = ROOT / "src" / "repro"
+REF_MODULES = sorted(REF.rglob("*.py"))
+
+# The reference's public names that the port has no counterpart for, by
+# module (the path under ``repro``), each with its reason. Nothing else may
+# be missing.
+NOT_PORTED = {
+    # the Pallas entry points: each kernel's port is the ``*_cuda`` wrapper
+    # of a CUDA source beside its plain version
+    "kernels.edge_softmax.kernel": {"edge_softmax_pallas"},
+    "kernels.fused_edge_softmax_aggregate.kernel": {
+        "fused_edge_softmax_aggregate_pallas"},
+    "kernels.fused_gather_aggregate.kernel": {
+        "fused_gather_aggregate_pallas"},
+    "kernels.gather.kernel": {"gather_rows_pallas"},
+    "kernels.segment_sum.kernel": {"segment_sum_pallas"},
+    "kernels.sparse_adam.kernel": {"sparse_adam_pallas"},
+    # parses XLA's HLO text; the port's dry-run reads its collectives from
+    # the traced step (``StepTrace``)
+    "launch.dryrun": {"collective_bytes_from_hlo"},
+    # builds a ``jax.ShapeDtypeStruct``; the port's specs are fake tensors
+    "launch.input_specs": {"sds"},
+    # renamed ``NodeMinibatchPipeline`` and ``LinkMinibatchPipeline``:
+    # ``tools/check_docs.py`` refuses a ``MinibatchPipeline(`` outside the
+    # reference's ``api/`` (ROADMAP.md, "The API boundary")
+    "core.pipeline.minibatch": {"MinibatchPipeline", "EdgeMinibatchPipeline"},
+}
+# Parameters of the reference's functions that the port's take under
+# another name or not at all, each with its reason.
+PARAMS_NOT_PORTED = {
+    # the HLO dump (the port saves its trace with ``save_trace``)
+    ("launch.dryrun", "run_one"): {"save_hlo"},
+    # named for JAX abstract values; the port passes the tensors
+    # (``repro_torch.sharding.rules.cache_pspecs`` / ``batch_pspecs``)
+    ("launch.dryrun", "cache_pspecs"): {"cache_abs"},
+    ("launch.dryrun", "batch_pspecs"): {"batch_abs"},
+    # JAX PRNG keys; a ``torch.Generator`` takes their place
+    ("models.gnn.models", "init_gnn"): {"rng"},
+    ("models.lm.model", "init_params"): {"key"},
+}
+
+
+def _ref_module_name(path: Path) -> str:
+    parts = path.relative_to(REF).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def _ref_public_defs(path: Path) -> list:
+    """The module's public top-level functions and classes, read by AST
+    (the reference is not imported)."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    return [n for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def _param_names(node: ast.FunctionDef) -> list:
+    a = node.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+
+@pytest.mark.parametrize("path", REF_MODULES,
+                         ids=lambda p: _ref_module_name(p) or "repro")
+def test_port_has_the_reference_public_surface(path):
+    """``repro_torch.<path>`` has each public function and class of
+    ``repro.<path>``, and each function accepts every parameter name of
+    the reference's, but for the commented allow-lists above."""
+    name = _ref_module_name(path)
+    port = importlib.import_module("repro_torch" + (f".{name}" if name
+                                                    else ""))
+    defs = {d.name: d for d in _ref_public_defs(path)}
+    skip = NOT_PORTED.get(name, set())
+    assert skip <= set(defs), f"stale allow-list entry {name}: {skip}"
+    missing = [n for n in defs if n not in skip and not hasattr(port, n)]
+    assert not missing, f"repro_torch.{name} lacks {missing}"
+    assert not [n for n in skip if hasattr(port, n)], \
+        f"repro_torch.{name} has {skip}: drop them from NOT_PORTED"
+    for n, d in defs.items():
+        if n in skip or isinstance(d, ast.ClassDef):
+            continue
+        params = inspect.signature(getattr(port, n)).parameters
+        gone = PARAMS_NOT_PORTED.get((name, n), set())
+        assert gone <= set(_param_names(d)), f"stale entry {name}.{n}"
+        lacks = [a for a in _param_names(d) if a not in gone and (
+            a not in params or params[a].kind is params[a].VAR_POSITIONAL)]
+        assert not lacks, f"repro_torch.{name}.{n} takes no {lacks}"
+        assert not [a for a in gone if a in params], \
+            f"repro_torch.{name}.{n}: drop {gone} from PARAMS_NOT_PORTED"
+
+
+def test_surface_allow_lists_name_reference_modules():
+    names = {_ref_module_name(p) for p in REF_MODULES}
+    assert set(NOT_PORTED) <= names
+    assert {m for m, _ in PARAMS_NOT_PORTED} <= names
 
 
 def _run_smoke(cwd: Path):
