@@ -1802,6 +1802,7 @@ def phase_training(torch, path: str, argv: list) -> tuple:
 
     from repro_torch.launch import train
     from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.training.trainer import HOST_SPANS
 
     args = train.build_parser().parse_args(argv + ["--epochs", "1",
                                                    "--device", DEVICE])
@@ -1887,7 +1888,7 @@ def phase_training(torch, path: str, argv: list) -> tuple:
 
     steps = tr2.global_step
     spans = {k: v / steps for k, v in tr2.spans_ms().items()}
-    host = {k: v for k, v in spans.items() if not k.startswith("device_")}
+    host = {k: spans[k] for k in HOST_SPANS}
     total = sum(host.values())
     log(f"[breakdown] {path}, one step of {tr2.num_trainers} x "
         f"{tr2.node_cfg.batch_size} seeds, mean of the second run's {steps} "

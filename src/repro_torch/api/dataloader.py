@@ -240,7 +240,9 @@ class NodeDataLoader(_BaseLoader):
     (``packed_staging=False``: one copy an array instead of one packed
     arena; the same bytes on the device).
     ``seed`` drives the epoch schedule + pipeline, and ``sampler_seed``
-    the neighbor draws (defaults keep them disjoint).
+    the neighbor draws (defaults keep them disjoint). ``tracer`` (the
+    trainer's span object) receives the pipeline's sampling and
+    feature-pull times.
 
     ``mode="eval"`` is the deterministic inline evaluation protocol:
     sequential (unshuffled) batches over ``nids``, ad-hoc sampler
@@ -254,7 +256,8 @@ class NodeDataLoader(_BaseLoader):
                  packed_staging: bool = True, device="cuda",
                  sync: bool = False, non_stop: bool = True,
                  depths: Optional[dict] = None, seed: int = 0,
-                 sampler_seed: Optional[int] = None, mode: str = "train"):
+                 sampler_seed: Optional[int] = None, mode: str = "train",
+                 tracer=None):
         super().__init__(g, mode)
         self.nids = np.asarray(nids, dtype=np.int64)
         self.labels = labels
@@ -275,7 +278,8 @@ class NodeDataLoader(_BaseLoader):
                 labels=labels, sync=sync, non_stop=non_stop, depths=depths,
                 to_device=device_prefetch, packed=packed_staging,
                 device=device, seed=seed, typed=g.typed, cache=cache,
-                sample_workers=sample_workers, shuffle=shuffle)
+                sample_workers=sample_workers, shuffle=shuffle,
+                tracer=tracer)
 
     def __len__(self) -> int:
         if self.pipeline is not None:
@@ -308,7 +312,7 @@ class EdgeDataLoader(_BaseLoader):
     evaluation protocol (a fresh schedule from ``edge_seed`` each
     iteration, ad-hoc sampler coordinates, sampling RPCs uncharged, no
     threads). The batches are byte-identical to the reference loader's
-    for the same seeds.
+    for the same seeds. ``tracer`` as :class:`NodeDataLoader`'s.
     """
 
     _wrap_cls = EdgeBatch
@@ -321,7 +325,8 @@ class EdgeDataLoader(_BaseLoader):
                  device="cuda", sync: bool = False, non_stop: bool = True,
                  depths: Optional[dict] = None, seed: int = 0,
                  sampler_seed: Optional[int] = None,
-                 edge_seed: Optional[int] = None, mode: str = "train"):
+                 edge_seed: Optional[int] = None, mode: str = "train",
+                 tracer=None):
         super().__init__(g, mode)
         self.batch_size = int(batch_size)
         self.num_negs = int(num_negs)
@@ -354,7 +359,8 @@ class EdgeDataLoader(_BaseLoader):
                 self.edge_sampler, self._client, g.feat_name, sync=sync,
                 non_stop=non_stop, depths=depths, to_device=device_prefetch,
                 packed=packed_staging, device=device, seed=seed,
-                typed=g.typed, cache=cache, sample_workers=sample_workers)
+                typed=g.typed, cache=cache, sample_workers=sample_workers,
+                tracer=tracer)
 
     def __len__(self) -> int:
         return self.edge_sampler.batches_per_epoch

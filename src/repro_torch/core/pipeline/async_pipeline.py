@@ -26,7 +26,14 @@ no-pipelining baseline used for the Fig. 14 ablation.
 
 Per-stage wall-time and occupancy counters feed the Table-2-style breakdown
 benchmark; under pools the counters aggregate over all of a stage's
-workers (guarded by a per-stage lock).
+workers (guarded by a per-stage lock). ``busy_s`` is the wall time of the
+stage's calls, and includes time its threads spent waiting for the
+interpreter lock: the pipelines of several trainers share one
+interpreter, so their stages' ``busy_s`` can sum past the wall clock.
+``cpu_s`` is the CPU time the calling thread used over the same calls
+(``time.thread_time``), what the stage really computed. A pipeline given
+a ``tracer`` also adds both numbers of every call of a stage with a
+``span`` to the tracer's ``span`` and ``<span>_cpu`` totals.
 """
 from __future__ import annotations
 
@@ -47,12 +54,14 @@ class Stage:
     fn: Callable[[Any], Any]
     depth: int = 2          # output queue bound (ahead-of-time aggressiveness)
     workers: int = 1        # >1: thread pool + in-order reassembly
+    span: Optional[str] = None   # the tracer's name for this stage's calls
 
 
 @dataclasses.dataclass
 class StageStats:
     items: int = 0
-    busy_s: float = 0.0
+    busy_s: float = 0.0        # wall time in fn, interpreter-lock waits too
+    cpu_s: float = 0.0         # the calling thread's CPU time in fn
     wait_in_s: float = 0.0     # starved (waiting for producer)
     wait_out_s: float = 0.0    # backpressured (waiting for consumer)
 
@@ -66,15 +75,19 @@ class AsyncPipeline:
     The source iterable runs in its own feeder thread so that *scheduling*
     (the first pipeline stage in Fig. 7) is also asynchronous. The feeder
     tags every item with a sequence number; pooled stages may complete
-    items out of order but re-emit them in sequence order.
+    items out of order but re-emit them in sequence order. ``tracer``
+    (anything with ``add(name, seconds, cpu=seconds)``, such as the
+    trainer's span object) receives the time of every call of a stage
+    that names a ``span``.
     """
 
     def __init__(self, source: Iterable[Any], stages: List[Stage], *,
-                 sync: bool = False, name: str = "pipeline"):
+                 sync: bool = False, name: str = "pipeline", tracer=None):
         self.source = source
         self.stages = stages
         self.sync = sync
         self.name = name
+        self.tracer = tracer
         self.stats = {s.name: StageStats() for s in stages}
         self._stat_locks = {s.name: threading.Lock() for s in stages}
         self._threads: List[threading.Thread] = []
@@ -110,12 +123,23 @@ class AsyncPipeline:
     def _run_sync(self) -> Iterator[Any]:
         for item in self.source:
             for s in self.stages:
-                st = self.stats[s.name]
-                t0 = time.perf_counter()
+                t0, c0 = time.perf_counter(), time.thread_time()
                 item = s.fn(item)
-                st.busy_s += time.perf_counter() - t0
-                st.items += 1
+                c1, t1 = time.thread_time(), time.perf_counter()
+                self._busy(s, t1 - t0, c1 - c0)
+                self.stats[s.name].items += 1
             yield item
+
+    def _busy(self, s: Stage, wall: float, cpu: float) -> None:
+        """One call of ``s.fn``: its wall and CPU time into the stage's
+        stats (under the stage's lock where the stage is pooled) and the
+        tracer. Callers read the CPU clock inside the wall clock's reads,
+        so a call's CPU time is never above its wall time."""
+        st = self.stats[s.name]
+        st.busy_s += wall
+        st.cpu_s += cpu
+        if self.tracer is not None and s.span is not None:
+            self.tracer.add(s.span, wall, cpu=cpu)
 
     # ------------------------------------------------------------------
     def start(self) -> None:
@@ -210,14 +234,15 @@ class AsyncPipeline:
                 self._put(out_q, _SENTINEL)
                 return
             seq, payload = item
+            c1 = time.thread_time()
             try:
                 out = s.fn(payload)
             except BaseException as e:
                 self._error = e
                 self._put(out_q, _SENTINEL)
                 return
-            t2 = time.perf_counter()
-            st.busy_s += t2 - t1
+            c2, t2 = time.thread_time(), time.perf_counter()
+            self._busy(s, t2 - t1, c2 - c1)
             if not self._put(out_q, (seq, out)):
                 return
             st.wait_out_s += time.perf_counter() - t2
@@ -262,6 +287,7 @@ class AsyncPipeline:
             with lock:
                 st.wait_out_s += tw - t1     # window wait = backpressure
             t1 = tw
+            c1 = time.thread_time()
             try:
                 out = s.fn(payload)
             except BaseException as e:
@@ -271,9 +297,9 @@ class AsyncPipeline:
                     self._order_cv.notify_all()
                 self._put(mid_q, _WORKER_ERR)
                 return
-            t2 = time.perf_counter()
+            c2, t2 = time.thread_time(), time.perf_counter()
             with lock:
-                st.busy_s += t2 - t1
+                self._busy(s, t2 - t1, c2 - c1)
             if not self._put(mid_q, (seq, out)):
                 return
             with lock:

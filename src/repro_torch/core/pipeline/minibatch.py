@@ -75,7 +75,9 @@ def _epoch_schedule(seeds: np.ndarray, labels: Optional[np.ndarray],
 class NodeMinibatchPipeline:
     """The node mini-batch pipeline. ``to_device`` adds the device-prefetch
     stage, which stages each batch on ``device``: one packed arena, or one
-    tensor an array with ``packed=False``."""
+    tensor an array with ``packed=False``. ``tracer`` (the trainer's span
+    object) receives the sampling stage's time as ``sample`` and the CPU
+    prefetch's (the feature pull) as ``pull``, wall and CPU."""
 
     def __init__(self, sampler: DistributedSampler, kv_client: KVClient,
                  feat_name: str, seeds: np.ndarray,
@@ -86,7 +88,7 @@ class NodeMinibatchPipeline:
                  to_device: bool = True, packed: bool = True,
                  device="cuda", seed: int = 0,
                  typed=None, cache=None, sample_workers: int = 1,
-                 shuffle: bool = True):
+                 shuffle: bool = True, tracer=None):
         self.sampler = sampler
         self.kv_client = kv_client
         self.feat_name = feat_name
@@ -117,6 +119,7 @@ class NodeMinibatchPipeline:
         self.seed = seed
         self.sample_workers = max(int(sample_workers), 1)
         self.shuffle = shuffle
+        self.tracer = tracer
         self.batches_per_epoch = len(self.seeds) // self.batch_size
         self._pipe: Optional[AsyncPipeline] = None
         self._out_iter = None
@@ -170,14 +173,15 @@ class NodeMinibatchPipeline:
     def _build(self, epochs, start_batch: int = 0) -> AsyncPipeline:
         stages = [
             Stage("sample", self._stage_sample, depth=self.depths["sample"],
-                  workers=self.sample_workers),
+                  workers=self.sample_workers, span="sample"),
             Stage("cpu_prefetch", self._stage_cpu_prefetch,
-                  depth=self.depths["cpu_prefetch"]),
+                  depth=self.depths["cpu_prefetch"], span="pull"),
             Stage("device_prefetch", self._stage_device_prefetch,
                   depth=self.depths["device_prefetch"]),
         ]
         return AsyncPipeline(self._schedule_source(epochs, start_batch),
-                             stages, sync=self.sync, name="minibatch")
+                             stages, sync=self.sync, name="minibatch",
+                             tracer=self.tracer)
 
     def epoch(self, epoch: int, start_batch: int = 0):
         """Iterate one epoch's mini-batches.

@@ -226,7 +226,12 @@ def run_gnn(args, trainer=None) -> dict:
         tr.stop()
     stats = tr.sampling_stats()
     out = {"epochs": epochs, "stats": stats, "spans_ms": tr.spans_ms(),
-           "trainer": tr, "revived": revived}
+           "counters": tr.counters(), "trainer": tr, "revived": revived}
+    # the tracer's totals over every step: the step's spans, the
+    # sub-spans of stack_stage, the loaders' stages (wall and CPU), in ms;
+    # the bytes staged
+    print(f"[spans] ms={json.dumps(out['spans_ms'])} "
+          f"counters={json.dumps(out['counters'])}", flush=True)
     if lp:
         print(f"[final] val_mrr={val['mrr']:.3f} "
               f"hits@10={val['hits@10']:.3f} stats={json.dumps(stats)}",

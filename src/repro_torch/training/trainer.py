@@ -36,10 +36,12 @@ candidates (MRR, Hits@k).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import threading
 import time
 from typing import List, Optional
 
@@ -54,7 +56,7 @@ from ..checkpoint import (load_cache, load_kvstore, load_pytree, save_cache,
 from ..core.kvstore import CacheConfig, FaultInjector, NetworkModel
 from ..core.sampler import EdgeBatchSampler
 from ..graph.datasets import GraphDataset
-from ..kernels.pack import device_stage, stack_trees
+from ..kernels.pack import device_stage, host_stage, stack_trees
 from ..models.gnn import (GNNConfig, apply_gnn, init_gnn, init_lp_head,
                           lp_loss_from_scores, lp_metrics, lp_pair_scores,
                           lp_ranks, nc_accuracy, nc_loss, params_to)
@@ -69,6 +71,21 @@ HOST_SPANS = ("wait_loaders", "stack_stage", "forward", "backward",
               "optimizer", "read_loss")
 DEVICE_SPANS = ("device_stack_stage", "device_forward", "device_backward",
                 "device_optimizer")
+# inside stack_stage on the trainer's thread (packed staging): the host
+# stack of the trainers' batches and the pack into the pinned arena; and
+# the thread's CPU time over the whole of stack_stage
+STAGE_SPANS = ("stack_host", "stage_pack", "stack_stage_cpu")
+# the loaders' sample and feature-pull (cpu_prefetch) stages: wall and
+# thread CPU time of each call, summed over the trainers' pipelines
+LOADER_SPANS = ("sample", "sample_cpu", "pull", "pull_cpu")
+# counts, not seconds: the arena bytes of every step staged packed
+COUNTERS = ("staged_bytes",)
+# the prefix of the trainer thread's profiler ranges
+RANGE_PREFIX = "repro_torch."
+# a profiler range that records no GPU annotation: record_function's
+# user-scope ranges add one, a device-typed event, for every range that
+# encloses a launch
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 
 @dataclasses.dataclass
@@ -129,13 +146,26 @@ class TrainJobConfig:
 
 
 class _Spans:
-    """Per-step spans: host clock between marks, and on the card CUDA
-    events at the same marks, read once the events have completed."""
+    """The training path's tracer: per-step spans on the host clock
+    between marks, and on the card CUDA events at the same marks, read
+    once the events have completed; sub-spans of ``stack_stage``; the
+    loaders' stage times; the bytes staged.
+
+    Every total is in ``totals`` (seconds, ``staged_bytes`` a count), each
+    key created here: the loaders' threads add to it while others copy it,
+    and every addition holds one lock. While a ``torch.profiler`` session
+    records the trainer's thread, each of its spans is also a range named
+    ``repro_torch.<span>`` whose arguments are ``step_id`` (epoch and
+    step)."""
 
     def __init__(self, on_card: bool):
         self.on_card = on_card
-        self.totals = dict.fromkeys(HOST_SPANS + (DEVICE_SPANS if on_card
-                                                  else ()), 0.0)
+        self.totals = dict.fromkeys(
+            HOST_SPANS + STAGE_SPANS + LOADER_SPANS
+            + (DEVICE_SPANS if on_card else ()), 0.0)
+        self.totals.update(dict.fromkeys(COUNTERS, 0))
+        self.step_id = {"epoch": 0, "step": 0}
+        self._lock = threading.Lock()
         self._pending: List[tuple] = []   # (name, start event, end event)
         self._t = 0.0
         self._event = None
@@ -149,9 +179,17 @@ class _Spans:
         ev.record()
         return ev
 
+    def add(self, name: str, amount, cpu: Optional[float] = None) -> None:
+        """Add ``amount`` to ``name`` and ``cpu`` seconds to
+        ``<name>_cpu``, from any thread."""
+        with self._lock:
+            self.totals[name] += amount
+            if cpu is not None:
+                self.totals[name + "_cpu"] += cpu
+
     def mark(self, name: str, device: bool = False) -> None:
         now = time.perf_counter()
-        self.totals[name] += now - self._t
+        self.add(name, now - self._t)
         self._t = now
         if self.on_card:
             ev = self._record()
@@ -159,11 +197,48 @@ class _Spans:
                 self._pending.append((f"device_{name}", self._event, ev))
             self._event = ev
 
+    def _open(self, name: str):
+        if _RANGE is None or not torch._C._autograd._profiler_enabled():
+            return None
+        r = _RANGE(RANGE_PREFIX + name, (), self.step_id)
+        r.__enter__()
+        return r
+
+    @contextlib.contextmanager
+    def span(self, name: str, device: bool = False, cpu: bool = False):
+        """The step span ``name``, from the previous boundary to the end of
+        the block, where it calls ``self.mark(name, device)``; with
+        ``cpu``, the thread's CPU time inside the block goes to
+        ``<name>_cpu``."""
+        r = self._open(name)
+        c0 = time.thread_time() if cpu else 0.0
+        try:
+            yield
+        finally:
+            if r is not None:
+                r.__exit__(None, None, None)
+        if cpu:
+            self.add(name + "_cpu", time.thread_time() - c0)
+        self.mark(name, device)
+
+    @contextlib.contextmanager
+    def child(self, name: str):
+        """A span nested in the current step span, timed on its own: it
+        counts toward both and moves no boundary."""
+        r = self._open(name)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if r is not None:
+                r.__exit__(None, None, None)
+        self.add(name, time.perf_counter() - t0)
+
     def resolve(self) -> None:
         """Add the device spans of the completed steps (after a
         synchronize)."""
         for name, a, b in self._pending:
-            self.totals[name] += a.elapsed_time(b) / 1e3
+            self.add(name, a.elapsed_time(b) / 1e3)
         self._pending.clear()
 
 
@@ -237,6 +312,7 @@ class DistGNNTrainer:
                 seed=job.seed)
             self.locality = self.graph.locality_report(self.trainer_seeds)
 
+        self.spans = _Spans(self.device.type == "cuda")
         # per-trainer loaders (each owns its sampler, client, cache and
         # async pipeline); the trainer only stacks their batches
         self.num_trainers = self.graph.num_trainers
@@ -248,7 +324,8 @@ class DistGNNTrainer:
                           cache=gt.feature_cache(job.cache),
                           sample_workers=job.sample_workers,
                           seed=job.seed + 200 + ti,
-                          sampler_seed=job.seed + 100 + ti)
+                          sampler_seed=job.seed + 100 + ti,
+                          tracer=self.spans)
             if lp:
                 self.loaders.append(EdgeDataLoader(
                     gt, self.trainer_edges[ti], self.node_cfg.fanouts,
@@ -303,7 +380,6 @@ class DistGNNTrainer:
         # train_epoch() call must target that epoch and fast-forwards to
         # that batch (DESIGN.md §10)
         self._resume: Optional[tuple] = None
-        self.spans = _Spans(self.device.type == "cuda")
 
     # ------------------------------------------------------------------
     def _stage(self, tree: dict) -> dict:
@@ -320,7 +396,13 @@ class DistGNNTrainer:
         trainer's leaf on its own and stacks on the device. The device
         bytes are identical either way."""
         if self.job.packed_staging:
-            return self._stage(stack_trees(batches))
+            spans = self.spans
+            with spans.child("stack_host"):
+                tree = stack_trees(batches)
+            with spans.child("stage_pack"):
+                packed = host_stage(tree, pin=self.device.type == "cuda")
+            spans.add("staged_bytes", packed.total_bytes())
+            return packed.to(self.device).unpack()
         return stack_trees([device_stage(b, self.device, packed=False)
                             for b in batches], torch.stack)
 
@@ -370,15 +452,15 @@ class DistGNNTrainer:
         """One synchronous AdamW step on the stacked batch -> (loss, acc or
         MRR) as tensors on the device."""
         spans = self.spans
-        loss, acc, leaves = self._forward(self.params, stacked,
-                                          self.node_cfg)
-        spans.mark("forward", device=True)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _p: next(grads), self.params)
-        spans.mark("backward", device=True)
-        self.params, self.opt = adamw_update(self.params, grads, self.opt,
-                                             lr=self.job.lr)
-        spans.mark("optimizer", device=True)
+        with spans.span("forward", device=True):
+            loss, acc, leaves = self._forward(self.params, stacked,
+                                              self.node_cfg)
+        with spans.span("backward", device=True):
+            grads = iter(torch.autograd.grad(loss, leaves))
+            grads = tree_map(lambda _p: next(grads), self.params)
+        with spans.span("optimizer", device=True):
+            self.params, self.opt = adamw_update(self.params, grads,
+                                                 self.opt, lr=self.job.lr)
         self.global_step += 1
         return loss.detach(), acc
 
@@ -412,15 +494,16 @@ class DistGNNTrainer:
             # killed trainer's last completed step is unambiguous
             if inj is not None:
                 inj.check_death(epoch, k)
+            spans.step_id = {"epoch": epoch, "step": k}
             spans.start()
-            batches = [next(it).model_input() for it in iters]
-            spans.mark("wait_loaders")
-            stacked = self._stack(batches)
-            spans.mark("stack_stage", device=True)
+            with spans.span("wait_loaders"):
+                batches = [next(it).model_input() for it in iters]
+            with spans.span("stack_stage", device=True, cpu=True):
+                stacked = self._stack(batches)
             loss, acc = self.train_step(stacked)
-            losses.append(float(loss))
-            accs.append(float(acc))
-            spans.mark("read_loss")
+            with spans.span("read_loss"):
+                losses.append(float(loss))
+                accs.append(float(acc))
         # drain every iterator to ITS epoch boundary. With equal
         # per-trainer batch counts this pulls nothing in non-stop mode and
         # just exhausts finite pipelines; on the typed link-prediction path
@@ -586,8 +669,14 @@ class DistGNNTrainer:
             ld.close()
 
     def spans_ms(self) -> dict:
-        """Every span summed over the steps taken so far, in ms."""
-        return {k: v * 1e3 for k, v in self.spans.totals.items()}
+        """Every span summed over the steps taken so far, in ms (the
+        ``*_cpu`` ones: CPU time of the thread that ran the span)."""
+        return {k: v * 1e3 for k, v in self.spans.totals.items()
+                if k not in COUNTERS}
+
+    def counters(self) -> dict:
+        """Every counter summed over the steps taken so far."""
+        return {k: self.spans.totals[k] for k in COUNTERS}
 
     def sampling_stats(self) -> dict:
         remote = sum(s.stats.seeds_remote for s in self.samplers)

@@ -264,8 +264,12 @@ def test_trainer_reports_spans_and_stats(trained):
     port = trained["port"]
     spans = port.spans_ms()
     assert set(spans) == {"wait_loaders", "stack_stage", "forward",
-                          "backward", "optimizer", "read_loss"}
+                          "backward", "optimizer", "read_loss", "stack_host",
+                          "stage_pack", "stack_stage_cpu", "sample",
+                          "sample_cpu", "pull", "pull_cpu"}
     assert all(v >= 0 for v in spans.values())
+    assert set(port.counters()) == {"staged_bytes"}
+    assert port.counters()["staged_bytes"] > 0
     assert spans["forward"] > 0 and spans["backward"] > 0
     stats = port.sampling_stats()
     assert stats["transport"]["remote_requests"] > 0
