@@ -41,7 +41,7 @@ from ..kvstore.transport import Transport
 from ..partition.book import GraphPartition, PartitionBook
 from .mfg import (Fanout, MFGBlock, MiniBatch, capacities, pad_block,
                   pad_typed_block, relation_capacities)
-from .neighbor import sample_local
+from .neighbor import DrawCounts, sample_local
 from .prng import STREAM_ADHOC, STREAM_SAMPLE, PerBatchRng
 
 
@@ -65,6 +65,12 @@ class SamplerStats:
     owner_requests: int = 0
     relation_requests: int = 0
     edges_per_etype: Optional[np.ndarray] = None   # typed runs only
+    # the neighbour draw (neighbor._subsample_positions): candidate slots
+    # given a key, slots that reached the sort, seeds refilled with all
+    # their candidates
+    draw_candidates: int = 0
+    draw_sorted: int = 0
+    draw_refills: int = 0
 
     @property
     def remote_seed_frac(self) -> float:
@@ -86,7 +92,10 @@ class SamplerStats:
                 "input_nodes_total": self.input_nodes_total,
                 "owner_requests": self.owner_requests,
                 "relation_requests": self.relation_requests,
-                "coalescing_factor": self.request_coalescing_factor}
+                "coalescing_factor": self.request_coalescing_factor,
+                "draw_candidates": self.draw_candidates,
+                "draw_sorted": self.draw_sorted,
+                "draw_refills": self.draw_refills}
 
 
 class DistributedSampler:
@@ -223,6 +232,12 @@ class DistributedSampler:
             self.stats.owner_requests += 1
             self.stats.relation_requests += num_relations
 
+    def _count_draw(self, draw: DrawCounts) -> None:
+        with self._stats_lock:
+            self.stats.draw_candidates += draw.candidates
+            self.stats.draw_sorted += draw.sorted
+            self.stats.draw_refills += draw.refills
+
     def _dispatch(self, groups, fanout: int, rng: np.random.Generator,
                   view=None, collect_etypes: bool = False
                   ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
@@ -235,11 +250,13 @@ class DistributedSampler:
         e_dst_i: List[np.ndarray] = []
         e_type: List[np.ndarray] = []
         typed = False
+        draw = DrawCounts()
         for p, sel, local in groups:
             gp = self.partitions[p]
             if view is not None:
                 gp = gp.relation_view(view)
-            src_g, seed_pos, _eids, etyp = sample_local(gp, local, fanout, rng)
+            src_g, seed_pos, _eids, etyp = sample_local(gp, local, fanout, rng,
+                                                        draw)
             e_src_g.append(src_g)
             e_dst_i.append(sel[seed_pos].astype(np.int32))
             if collect_etypes and etyp is not None:
@@ -247,6 +264,7 @@ class DistributedSampler:
                 e_type.append(etyp)
             if p != self.machine:
                 self._charge_owner_request(len(sel), len(src_g), 1)
+        self._count_draw(draw)
         src_gids = (np.concatenate(e_src_g) if e_src_g
                     else np.empty(0, dtype=np.int64))
         dst_idx = (np.concatenate(e_dst_i) if e_dst_i
@@ -296,17 +314,19 @@ class DistributedSampler:
         # per (relation, partition) results, assembled relation-major below
         parts_src: dict = {r: [] for r in active}
         parts_dst: dict = {r: [] for r in active}
+        draw = DrawCounts()
         for p, sel, local in groups:
             gp = self.partitions[p]
             resp_rows = 0
             for r in active:
                 src_g, seed_pos, _eids, _ = sample_local(
-                    gp.relation_view(r), local, int(rel_fanout[r]), rng)
+                    gp.relation_view(r), local, int(rel_fanout[r]), rng, draw)
                 parts_src[r].append(src_g)
                 parts_dst[r].append(sel[seed_pos].astype(np.int32))
                 resp_rows += len(src_g)
             if p != self.machine:
                 self._charge_owner_request(len(sel), resp_rows, len(active))
+        self._count_draw(draw)
         rel_src_g: List[np.ndarray] = []
         rel_dst_i: List[np.ndarray] = []
         per_etype = np.zeros(schema.num_etypes, dtype=np.int64)

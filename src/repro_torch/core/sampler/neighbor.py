@@ -8,14 +8,17 @@ to decompose sampling across machines.
 
 The without-replacement subsample is fully vectorized: instead of a Python
 loop calling ``rng.choice`` per seed, every candidate edge slot of every
-subsampled seed gets one uniform random key and a single ``lexsort`` ranks
-the keys within each seed's segment — the ``fanout`` smallest keys per seed
-are the draw (a batched random-key selection, equivalent in distribution to
-a per-seed partial Fisher–Yates). One RNG call, one sort, no per-seed
-Python overhead — this is the kernel the sampler worker pool multiplies.
+subsampled seed gets one uniform random key, and the ``fanout`` smallest
+keys per seed are the draw (a batched random-key selection, equivalent in
+distribution to a per-seed partial Fisher–Yates). Only the few candidates
+whose key lies below a per-seed threshold are ranked, not every candidate
+slot: on a skewed graph a hop's frontier has millions of slots, of which a
+few percent are kept. The result is exactly the reference's single
+``lexsort`` over all slots, from the same one RNG call.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -23,29 +26,79 @@ import numpy as np
 from ..partition.book import GraphPartition
 
 
+# The draw's filter keeps candidate ``j`` of a seed of degree ``d`` where
+# its key is below ``(fanout + FILTER_SIGMAS * sqrt(fanout) + FILTER_SLACK)
+# / d``: about that many candidates a seed, so that fewer than ``fanout``
+# of them (a refill) befalls some 2e-5 of the seeds at fanouts 1-25 (the
+# Poisson tail).
+FILTER_SIGMAS = 4.0
+FILTER_SLACK = 6.0
+
+
+@dataclasses.dataclass
+class DrawCounts:
+    """What ``_subsample_positions`` did, summed over its calls."""
+    candidates: int = 0     # candidate slots given a key
+    sorted: int = 0         # slots that reached the sort
+    refills: int = 0        # seeds that ranked all their candidates
+
+
 def _subsample_positions(starts: np.ndarray, degs: np.ndarray, fanout: int,
-                         rng: np.random.Generator) -> np.ndarray:
+                         rng: np.random.Generator,
+                         draw: Optional[DrawCounts] = None) -> np.ndarray:
     """Vectorized without-replacement draw of ``fanout`` adjacency
     positions for every seed (all must have ``degs > fanout``).
 
     Returns ``len(starts) * fanout`` absolute positions, grouped by seed.
     Random-key selection: candidate ``j`` of seed ``i`` gets key ``u_ij``;
-    the ``fanout`` smallest keys within each seed's segment are a uniform
-    without-replacement sample of its adjacency list.
+    the ``fanout`` smallest keys within each seed's segment, in key order,
+    are a uniform without-replacement sample of its adjacency list. The
+    result equals ``lexsort((keys, seed))`` over every candidate: a seed's
+    ``fanout`` smallest keys lie below any threshold that at least
+    ``fanout`` of its keys lie below, so only those candidates are ranked,
+    and a seed with fewer below its threshold ranks all its candidates.
+    ``draw``, if given, is incremented.
     """
     degs = degs.astype(np.int64)
+    n = len(degs)
     tot = int(degs.sum())
     ends = np.cumsum(degs)
     grp_start = ends - degs
-    # candidate's offset within its seed's adjacency list — also, because
-    # segments occupy the same index ranges after a stable per-segment
-    # sort, the rank threshold mask for the sorted layout
-    within = np.arange(tot, dtype=np.int64) - np.repeat(grp_start, degs)
-    seed_rep = np.repeat(np.arange(len(degs), dtype=np.int64), degs)
     keys = rng.random(tot)
-    order = np.lexsort((keys, seed_rep))      # segment-major, key-ascending
-    sel = order[within < fanout]              # fanout smallest keys per seed
-    return starts[seed_rep[sel]] + within[sel]
+    margin = fanout + FILTER_SIGMAS * np.sqrt(fanout) + FILTER_SLACK
+    # a seed of degree <= margin keeps every candidate (keys are < 1)
+    kept = np.flatnonzero(keys < np.repeat(margin / degs, degs))
+    seg = np.searchsorted(ends, kept, side="right")
+    cnt = np.bincount(seg, minlength=n)
+    short = np.flatnonzero(cnt < fanout)
+    if len(short):
+        short_degs = degs[short]
+        fill = np.arange(int(short_degs.sum()), dtype=np.int64) + np.repeat(
+            grp_start[short] - (np.cumsum(short_degs) - short_degs),
+            short_degs)
+        is_short = np.zeros(n, dtype=bool)
+        is_short[short] = True
+        live = ~is_short[seg]
+        kept = np.concatenate([kept[live], fill])
+        seg = np.concatenate([seg[live], np.repeat(short, short_degs)])
+        cnt[short] = short_degs
+    k = keys[kept]
+    # seed + key is monotone in (seed, key), so where its values are
+    # distinct their one ascending order is the lexsort's; on any tie, the
+    # stable lexsort (each seed's kept slots are in position order)
+    comp = seg + k
+    order = np.argsort(comp)
+    comp = comp[order]
+    if (comp[1:] == comp[:-1]).any():
+        order = np.lexsort((k, seg))
+    first = np.cumsum(cnt) - cnt
+    sel = order[(first[:, None] + np.arange(fanout)).ravel()]
+    if draw is not None:
+        draw.candidates += tot
+        draw.sorted += len(kept)
+        draw.refills += len(short)
+    sel_seg = seg[sel]
+    return starts[sel_seg] + (kept[sel] - grp_start[sel_seg])
 
 
 def _subsample_positions_loop(starts: np.ndarray, degs: np.ndarray,
@@ -63,12 +116,14 @@ def _subsample_positions_loop(starts: np.ndarray, degs: np.ndarray,
 
 def sample_local(gp: GraphPartition, local_seeds: np.ndarray, fanout: int,
                  rng: np.random.Generator,
+                 draw: Optional[DrawCounts] = None,
                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """Sample in-neighbors of ``local_seeds`` (core-local IDs) on ``gp``.
 
     Returns (src_gids, seed_pos, edge_ids, etypes): one row per sampled
     edge; ``seed_pos`` indexes into ``local_seeds`` (the caller knows which
-    global seed that is). fanout < 0 means "all neighbors".
+    global seed that is). fanout < 0 means "all neighbors". ``draw``, if
+    given, accumulates the draw's counts.
     """
     indptr, indices = gp.indptr, gp.indices
     starts = indptr[local_seeds]
@@ -98,7 +153,7 @@ def sample_local(gp: GraphPartition, local_seeds: np.ndarray, fanout: int,
     sub = np.nonzero(~take_all)[0]
     if len(sub):
         pos[~full_rows] = _subsample_positions(starts[sub], degs[sub],
-                                               fanout, rng)
+                                               fanout, rng, draw)
 
     src_local = indices[pos]
     src_gids = gp.local2global[src_local]

@@ -690,6 +690,9 @@ class DistGNNTrainer:
                    "relation_requests": rel_req,
                    "coalescing_factor": rel_req / max(owner_req, 1),
                },
+               "draw": {k: sum(getattr(s.stats, k) for s in self.samplers)
+                        for k in ("draw_candidates", "draw_sorted",
+                                  "draw_refills")},
                "mean_seed_locality": self.locality["mean_local_frac"],
                "partition_time_s": self.partition_time_s}
         if self.hetero:
