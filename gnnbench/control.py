@@ -38,26 +38,23 @@ def look(cell, st, decoded, device) -> list:
 
     from gnnbench.reference import check, model
 
-    arch = cell.model["arch"]
+    forward = cell.arch.forward
     opt = cell.config["optimizer"]
     b1, lr = float(opt["betas"][0]), float(opt["lr"])
     samples = check.to_device(decoded.samples[0], device)
     params = model.tree_map(lambda p: p.to(device).float(), st.params0)
     torch.use_deterministic_algorithms(True, warn_only=True)
-    _, ref = model.loss_and_grads(arch, params, samples)
+    _, ref = model.loss_and_grads(forward, params, samples)
     torch.use_deterministic_algorithms(False)
-    _, atomic = model.loss_and_grads(arch, params, samples)
+    _, atomic = model.loss_and_grads(forward, params, samples)
     step = model.AdamW(params, lr, tuple(opt["betas"]), float(opt["eps"]),
                        float(opt["weight_decay"])).step(params, ref)
     # the same gradient in float64 on the host, the arbiter
-    f64 = [{"feats": torch.as_tensor(s["feats"]).double(),
-            "layers": [{"src": torch.as_tensor(b["src"]),
-                        "dst": torch.as_tensor(b["dst"]),
-                        "n_dst": b["n_dst"]} for b in s["layers"]],
-            "labels": torch.as_tensor(s["labels"])}
-           for s in decoded.samples[0]]
+    f64 = check.to_device(decoded.samples[0], "cpu")
+    for s in f64:
+        s["feats"] = s["feats"].double()
     _, exact = model.loss_and_grads(
-        arch, model.tree_map(lambda p: p.double(), st.params0), f64)
+        forward, model.tree_map(lambda p: p.double(), st.params0), f64)
     prog = dict(model.leaves(st.first.moment1))
     prog1 = dict(model.leaves(st.first.params1))
     start = dict(model.leaves(st.params0))

@@ -3,11 +3,15 @@
 ``BENCHMARK.json`` names each cell's configuration and traffic; the
 configuration's file lies under ``gnnbench/configs/``, the traffic's under
 ``gnnbench/traffic/<traffic>.json``, each cell's correctness limits under
-``gnnbench/limits/<cell>.json`` and each metric's reader under
-``gnnbench/metrics/<metric>.py``. A later cell, traffic mix or metric is
-new files and a manifest entry; nothing here names one.
+``gnnbench/limits/<cell>.json``, each metric's reader under
+``gnnbench/metrics/<metric>.py``, the configuration's architecture under
+``gnnbench/archs/<model.arch>.py`` and its graph under
+``gnnbench/graphs/<data.generator>.py``. A later cell, traffic mix,
+metric, architecture or kind of graph is new files and a manifest entry;
+nothing here names one.
 
-A run: make the inputs from the seed; build the program's trainer
+A run: make the inputs from the seed (the graph's plug-in draws the
+graph, ``inputs`` the weights); build the program's trainer
 (``repro_torch.api.DistGNNTrainer`` with ``TrainJobConfig``) on them with
 the benchmark's weights; drive its ``train_epoch`` from epoch 0 until its
 first ``CHECKED_STEPS`` steps are observed (every shape of the cell's
@@ -63,6 +67,21 @@ class Cell:
     def batch_size(self) -> int:
         return int(self.traffic["seeds_per_trainer"])
 
+    @property
+    def arch(self):
+        """The architecture's plug-in, ``archs/<model.arch>.py``."""
+        return plugin("archs", self.model["arch"])
+
+    @property
+    def graph(self):
+        """The graph's plug-in, ``graphs/<data.generator>.py``."""
+        return plugin("graphs", self.config["data"]["generator"])
+
+    @property
+    def trainers(self) -> int:
+        j = self.config["job"]
+        return int(j["num_machines"]) * int(j["trainers_per_machine"])
+
 
 def _read_json(path: Path) -> dict:
     return json.loads(path.read_text())
@@ -89,14 +108,26 @@ def load_cell(name: str, manifest: Optional[dict] = None) -> Cell:
                 end_to_end=reported, per_layer=layered)
 
 
+def plugin(kind: str, name: str):
+    """The module ``gnnbench/<kind>/<name>.py``, loaded once a file (its
+    relative imports reach the rest of ``gnnbench``)."""
+    path = BENCH / kind / f"{name}.py"
+    key = f"gnnbench.{kind}.{name.replace('.', '_')}"
+    mod = sys.modules.get(key)
+    if mod is not None and Path(mod.__file__) == path:
+        return mod
+    if not path.is_file():
+        raise SystemExit(f"no {kind} plug-in {name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod      # a dataclass in it looks its module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """The ``read(window)`` function of ``gnnbench/metrics/<metric>.py``."""
-    path = BENCH / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"gnnbench.metrics.{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return plugin("metrics", metric).read
 
 
 def forbidden_modules() -> list:
@@ -108,27 +139,15 @@ def forbidden_modules() -> list:
 # the program under test
 # ---------------------------------------------------------------------------
 
-def build_trainer(cell: Cell, data: inputs.GraphData, seed: int, params,
-                  device):
+def build_trainer(cell: Cell, data, seed: int, params, device):
     """The program's trainer on the benchmark's data and weights."""
+    import repro_torch.graph as port_graph
     from repro_torch.api import DistGNNTrainer, TrainJobConfig
-    from repro_torch.graph.csr import CSRGraph
-    from repro_torch.graph.datasets import GraphDataset
     from repro_torch.models.gnn import GNNConfig
 
-    graph = CSRGraph(indptr=data.indptr, indices=data.indices,
-                     edge_ids=np.arange(len(data.indices), dtype=np.int64))
-    ds = GraphDataset(name=cell.config["name"], graph=graph,
-                      feats=data.feats, labels=data.labels,
-                      split_mask=data.split_mask,
-                      num_classes=data.num_classes)
-    m = cell.model
-    model_cfg = GNNConfig(arch=m["arch"], in_dim=int(m["in_dim"]),
-                          hidden_dim=int(m["hidden_dim"]),
-                          num_classes=int(m["num_classes"]),
-                          fanouts=[int(f) for f in m["fanouts"]],
-                          batch_size=cell.batch_size,
-                          num_heads=int(m.get("num_heads") or 1))
+    ds = cell.graph.dataset(data, cell.config["name"], port_graph)
+    model_cfg = GNNConfig(**cell.arch.port_config(cell.model,
+                                                  cell.batch_size))
     j = cell.config["job"]
     job = TrainJobConfig(
         num_machines=int(j["num_machines"]),
@@ -182,8 +201,7 @@ class FirstSteps:
         return out
 
     def _capture(self, stacked) -> dict:
-        blocks = [{k: _numpy(b[k])
-                   for k in ("edge_src", "edge_dst", "edge_mask")}
+        blocks = [{k: _numpy(v) for k, v in b.items() if torch.is_tensor(v)}
                   for b in stacked["blocks"]]
         seed_mask = _numpy(stacked["seed_mask"])
         feats = []
@@ -209,7 +227,7 @@ class FirstSteps:
 @dataclasses.dataclass
 class Setup:
     tr: object
-    data: inputs.GraphData
+    data: object            # what the graph's plug-in made
     params0: dict           # the initial weights, on the host
     first: FirstSteps
     losses: list            # the program's loss of every warm-up step
@@ -226,11 +244,12 @@ def setup(cell: Cell, seed: int, device, log=print,
     window that started on those queues would measure them; after the
     restart the queues hold what the steady state leaves in them."""
     t = time.perf_counter()
-    data = inputs.make_graph_data(cell.config["data"], seed)
-    log(f"[setup] data: {data.num_nodes} nodes, {len(data.indices)} "
-        f"directed edges, {len(data.train_nids)} training nodes "
-        f"({time.perf_counter() - t:.2f} s)")
-    params = inputs.make_weights(cell.model, seed, device)
+    data = cell.graph.make(cell.config["data"], seed)
+    log("[setup] data: " + ", ".join(
+        f"{k} {v.shape}" for k, v in vars(data).items()
+        if isinstance(v, np.ndarray))
+        + f" ({time.perf_counter() - t:.2f} s)")
+    params = inputs.make_weights(cell.arch, cell.model, seed, device)
     params0 = _host(params)
     t = time.perf_counter()
     tr = build_trainer(cell, data, seed, params, device)
@@ -314,7 +333,7 @@ def window(cell: Cell, st: Setup, seconds: float, traced: bool, t_start,
         steps=steps, seconds=t1 - t0,
         seeds=steps * tr.num_trainers * cell.batch_size, setup_s=setup_s,
         spans=spans, sample_busy_s=_sample_busy(tr) - busy0,
-        flops_per_step=counts.model_flops_per_step(
+        flops_per_step=cell.arch.flops_per_step(
             cell.model, cell.batch_size, tr.num_trainers),
         peak=counts.peaks(device_kind), trace=summary)
 
@@ -328,14 +347,13 @@ def check_first_steps(cell: Cell, st: Setup, device, log=print) -> tuple:
     judged, the reference followed and compared. Call once the program's
     trainer is stopped and freed."""
     t = time.perf_counter()
-    index = check.GraphIndex(st.data)
-    fanouts = [int(f) for f in cell.model["fanouts"]]
-    decoded = check.decode(index, st.first.steps, fanouts, cell.batch_size)
+    decoded = cell.graph.decode(st.data, st.first.steps, cell.model,
+                                cell.batch_size)
     log(f"[check] decoded {len(decoded.samples)} steps "
         f"({time.perf_counter() - t:.2f} s): faults {decoded.faults}")
     t = time.perf_counter()
     opt = cell.config["optimizer"]
-    ref = check.follow(cell.model["arch"], st.params0, decoded, opt, device)
+    ref = check.follow(cell.arch.forward, st.params0, decoded, opt, device)
     got = check.program_side(st.losses[:CHECKED_STEPS], st.first.moment1,
                              st.first.params_end, st.params0,
                              float(opt["betas"][0]))
@@ -354,15 +372,15 @@ def control_readings(cell: Cell, st: Setup, decoded, device) -> dict:
     ``half_batch``, the reference with half of the trainers' batches left
     out of the step's mean (a fault)."""
     opt = cell.config["optimizer"]
-    arch = cell.model["arch"]
-    ref = check.follow(arch, st.params0, decoded, opt, device)
+    forward = cell.arch.forward
+    ref = check.follow(forward, st.params0, decoded, opt, device)
     got = check.program_side(st.losses[:CHECKED_STEPS], st.first.moment1,
                              st.first.params_end, st.params0,
                              float(opt["betas"][0]))
     slots = len(decoded.samples[0])
-    tf32 = check.follow(arch, st.params0, decoded, opt, device,
+    tf32 = check.follow(forward, st.params0, decoded, opt, device,
                         precision="tf32")
-    half = check.follow(arch, st.params0, decoded, opt, device,
+    half = check.follow(forward, st.params0, decoded, opt, device,
                         slots=range(slots // 2))
     return {"program": check.readings(got, ref),
             "tf32": check.readings(tf32, ref),
@@ -371,12 +389,8 @@ def control_readings(cell: Cell, st: Setup, decoded, device) -> dict:
 
 def _shape_faults(cell: Cell, st: Setup) -> int:
     """Steps whose staged arrays are not at the cell's padded sizes."""
-    caps = counts.capacities(cell.batch_size,
-                             [int(f) for f in cell.model["fanouts"]])
-    trainers = (int(cell.config["job"]["num_machines"])
-                * int(cell.config["job"]["trainers_per_machine"]))
-    want = {"input_feats": (trainers, caps[0][0], int(cell.model["in_dim"])),
-            "edges": [(trainers, c[1]) for c in caps]}
+    want = cell.arch.staged_shapes(cell.model, cell.batch_size,
+                                   cell.trainers)
     return sum(s["shapes"] != want for s in st.first.steps)
 
 
@@ -419,10 +433,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
     free(st)
     values, decoded = check_first_steps(cell, st, device, log)
     if w.peak is not None:
-        w.kernel_least_s = counts.kernel_least_per_step(
-            cell.model, cell.batch_size,
-            int(cell.config["job"]["num_machines"])
-            * int(cell.config["job"]["trainers_per_machine"]),
+        w.kernel_least_s = cell.arch.kernel_least_per_step(
+            cell.model, cell.batch_size, cell.trainers,
             live_per_step(decoded), w.peak)
     wanted = cell.per_layer if traced else cell.end_to_end
     metrics = {}

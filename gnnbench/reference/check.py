@@ -6,14 +6,10 @@ of every trainer slot, and the live prefix of the feature rows), the
 program's loss of each step, its AdamW first moment after step 1 and its
 parameters after the last step checked. This module judges them:
 
-1. ``decode`` works each slot's batch out again from the benchmark's own
-   graph data: it identifies every feature row by its bytes among the
-   generated features, and checks that each live edge of layer l is an
-   edge of the graph, that each destination has min(degree, fanout_l)
-   distinct sampled sources, that the seeds are training nodes with their
-   own labels, never repeated within an epoch across trainers and steps,
-   and that every row is the generated row. Faults are counted, and the
-   limit on each count is 0.
+1. The graph's plug-in's ``decode`` (``gnnbench/graphs/``) works each
+   slot's batch out again from the benchmark's own graph data and counts
+   the faults it finds (sampling, rows, seeds; the limit on each count is
+   0) into a :class:`Decoded`.
 2. ``follow`` runs the reference from the benchmark's initial weights
    through the same steps, and ``readings`` compares: each step's loss,
    the first gradient (the program's, from its first moment after step 1)
@@ -48,130 +44,16 @@ class Decoded:
     live: list
 
 
-def _row_keys(rows: np.ndarray) -> np.ndarray:
-    """A 64-bit key of each float32 row: its first two words."""
-    w = np.ascontiguousarray(rows[:, :2]).view(np.uint32).astype(np.uint64)
-    return (w[:, 0] << np.uint64(32)) | w[:, 1]
-
-
-class GraphIndex:
-    """Lookups into the benchmark's graph data for the check."""
-
-    def __init__(self, data):
-        self.data = data
-        n = data.num_nodes
-        keys = _row_keys(data.feats)
-        self.key_order = np.argsort(keys, kind="stable")
-        self.sorted_keys = keys[self.key_order]
-        if np.any(self.sorted_keys[1:] == self.sorted_keys[:-1]):
-            raise ValueError("two feature rows share a key: draw again")
-        src = np.repeat(np.arange(n, dtype=np.int64), np.diff(data.indptr))
-        self.edge_keys = src * n + data.indices       # sorted ascending
-        self.degree = np.diff(data.indptr)
-
-    def identify(self, rows: np.ndarray) -> tuple:
-        """(node id of each row or -1, number of rows that are not a
-        generated row byte for byte)."""
-        keys = _row_keys(rows)
-        at = np.searchsorted(self.sorted_keys, keys)
-        at = np.minimum(at, len(self.sorted_keys) - 1)
-        found = self.sorted_keys[at] == keys
-        ids = np.where(found, self.key_order[at], -1)
-        same = found & np.all(
-            rows == self.data.feats[np.maximum(ids, 0)], axis=1)
-        return np.where(same, ids, -1), int((~same).sum())
-
-    def has_edges(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
-        keys = u * self.data.num_nodes + v
-        at = np.minimum(np.searchsorted(self.edge_keys, keys),
-                        len(self.edge_keys) - 1)
-        return self.edge_keys[at] == keys
-
-
-def decode(index: GraphIndex, steps: list, fanouts: list,
-           batch_size: int) -> Decoded:
-    """Judge the captured steps. ``steps[k]`` = {"epoch", "seed_mask" (S,
-    B), "labels" (S, B), "blocks": [{"edge_src", "edge_dst",
-    "edge_mask"} (S, E_l)], "feats": [(rows, F) per slot]}."""
-    faults = {"sample": 0, "row": 0, "seed": 0}
-    out, live = [], []
-    seen = {}                    # epoch -> seed ids taken in that epoch
-    data = index.data
-    for st in steps:
-        slots = []
-        num_layers = len(st["blocks"])
-        step_live = [[0, 0, 0] for _ in range(num_layers)]
-        for s in range(st["seed_mask"].shape[0]):
-            mask = st["seed_mask"][s]
-            n_seeds = int(mask.sum())
-            if n_seeds != batch_size or not mask[:n_seeds].all():
-                faults["seed"] += 1
-            # live counts, from the top layer down
-            layers = [None] * num_layers
-            n_dst = n_seeds
-            for l in range(num_layers - 1, -1, -1):
-                b = st["blocks"][l]
-                m = b["edge_mask"][s].astype(bool)
-                es = b["edge_src"][s][m].astype(np.int64)
-                ed = b["edge_dst"][s][m].astype(np.int64)
-                if len(ed) and (ed.min() < 0 or ed.max() >= n_dst
-                                or es.min() < 0):
-                    faults["sample"] += 1
-                    es, ed = es[:0], ed[:0]
-                n_src = max(n_dst, int(es.max()) + 1 if len(es) else 0)
-                layers[l] = {"src": es, "dst": ed, "n_dst": n_dst,
-                             "n_src": n_src}
-                n_dst = n_src
-            rows = st["feats"][s]
-            if rows.shape[0] < n_dst:
-                faults["row"] += n_dst - rows.shape[0]
-            ids, bad = index.identify(rows[:n_dst])
-            faults["row"] += bad
-            ids = np.concatenate([ids, np.full(n_dst - len(ids), -1)])
-            if len(np.unique(ids[ids >= 0])) != int((ids >= 0).sum()):
-                faults["sample"] += 1     # a node twice among the sources
-            for l, blk in enumerate(layers):
-                es, ed = blk["src"], blk["dst"]
-                u, v = ids[es], ids[ed]
-                ok = (u >= 0) & (v >= 0)
-                ok[ok] = index.has_edges(v[ok], u[ok])
-                faults["sample"] += int((~ok).sum())
-                pair = ed * blk["n_src"] + es
-                faults["sample"] += len(pair) - len(np.unique(pair))
-                want = np.minimum(
-                    index.degree[np.maximum(ids[:blk["n_dst"]], 0)],
-                    int(fanouts[l]))
-                got = np.bincount(ed, minlength=blk["n_dst"])
-                faults["sample"] += int((got != want).sum())
-                step_live[l][0] += len(es)
-                step_live[l][1] += len(np.unique(es))
-                step_live[l][2] += len(np.unique(ed))
-            seeds = ids[:n_seeds]
-            labels = st["labels"][s][:n_seeds].astype(np.int64)
-            good = seeds >= 0
-            faults["seed"] += int((~good).sum())
-            faults["seed"] += int((data.split_mask[seeds[good]] != 1).sum())
-            faults["seed"] += int((data.labels[seeds[good]]
-                                    != labels[good]).sum())
-            seen.setdefault(st["epoch"], []).append(seeds[good])
-            slots.append({"feats": data.feats[np.maximum(ids, 0)],
-                          "layers": [{"src": b["src"], "dst": b["dst"],
-                                      "n_dst": b["n_dst"]} for b in layers],
-                          "labels": data.labels[np.maximum(seeds, 0)]})
-        out.append(slots)
-        live.append(step_live)
-    for taken in seen.values():
-        allseeds = np.concatenate(taken)
-        faults["seed"] += len(allseeds) - len(np.unique(allseeds))
-    return Decoded(out, faults, live)
-
-
 def to_device(samples: list, device) -> list:
-    return [{"feats": torch.as_tensor(s["feats"], device=device),
-             "layers": [{"src": torch.as_tensor(b["src"], device=device),
-                         "dst": torch.as_tensor(b["dst"], device=device),
-                         "n_dst": b["n_dst"]} for b in s["layers"]],
-             "labels": torch.as_tensor(s["labels"], device=device)}
+    """Decoded samples as tensors on ``device``: the features, the labels
+    and every array of every layer (its count ``n_dst`` kept as is)."""
+    def tensor(v):
+        return torch.as_tensor(v, device=device) \
+            if isinstance(v, np.ndarray) else v
+    return [{"feats": tensor(s["feats"]),
+             "layers": [{k: tensor(v) for k, v in b.items()}
+                        for b in s["layers"]],
+             "labels": tensor(s["labels"])}
             for s in samples]
 
 
@@ -187,10 +69,11 @@ def _norms(tree) -> dict:
             for p, t in model.leaves(tree)}
 
 
-def follow(arch: str, params0, decoded: Decoded, opt_cfg: dict, device,
+def follow(forward, params0, decoded: Decoded, opt_cfg: dict, device,
            precision: str = "float32", slots=None) -> Followed:
-    """The reference from ``params0`` through every decoded step, its
-    sums in a fixed order (PyTorch's deterministic algorithms)."""
+    """The reference (``forward``, an architecture plug-in's) from
+    ``params0`` through every decoded step, its sums in a fixed order
+    (PyTorch's deterministic algorithms)."""
     if torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -206,7 +89,7 @@ def follow(arch: str, params0, decoded: Decoded, opt_cfg: dict, device,
     try:
         for step in decoded.samples:
             samples = to_device(step, device)
-            loss, grads = model.loss_and_grads(arch, params, samples,
+            loss, grads = model.loss_and_grads(forward, params, samples,
                                                precision, slots)
             losses.append(float(loss))
             if grad1 is None:

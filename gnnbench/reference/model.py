@@ -1,25 +1,22 @@
-"""Plain PyTorch GraphSAGE and GAT over the live part of each sampled
-block, the node-classification loss, and AdamW.
+"""The shared pieces of the plain float32 reference: the sample format,
+the TF32 control, the aggregations the architectures' plug-ins
+(``gnnbench/archs/``) build their ``forward`` from, the
+node-classification loss, and AdamW.
 
 A sample is one trainer's batch of one step, compacted to its live nodes
 and edges:
 
     {"feats": (n_src[0], F) float32,
-     "layers": [{"src": (E,) int64, "dst": (E,) int64, "n_dst": int}, ...],
+     "layers": [{"src": (E,) int64, "dst": (E,) int64, "n_dst": int,
+                 ...}, ...],
      "labels": (n_seeds,) int64}
 
 with the input layer first, the destinations of every layer a prefix of
-its sources, and layer l's sources layer l-1's destinations.
-
-Equations (DistDGLv2 §6's models):
-  GraphSAGE (mean): h_v' = act(W_self h_v + W_neigh mean_{u in N(v)} h_u + b)
-  GAT (H heads):    e_uv = leaky_relu(a_l . W h_u + a_r . W h_v, 0.2),
-                    alpha = softmax over v's in-edges,
-                    h_v' = act(concat_h sum_u alpha_uv W_h h_u + b),
-                    then a linear head where H x d_h is not the class count.
-Hidden layers use ReLU (GraphSAGE) or ELU (GAT); the last layer none. The
-loss is each trainer's mean cross-entropy over its seeds, averaged over
-the trainers (synchronous data parallelism).
+its sources, and layer l's sources layer l-1's destinations. A layer may
+carry more arrays of its edges (a typed graph's relation of each edge),
+as the graph's plug-in decodes them. The loss is each trainer's mean
+cross-entropy over its seeds, averaged over the trainers (synchronous
+data parallelism).
 
 ``precision="tf32"`` rounds both operands of every matrix product,
 forward and backward, to TF32 (10 mantissa bits, to nearest even) and
@@ -64,7 +61,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
     return a @ b
 
 
-def _mean_aggregate(h, src, dst, n_dst):
+def mean_aggregate(h, src, dst, n_dst):
+    """The mean of each destination's source rows (0 with no edge)."""
     deg = torch.zeros(n_dst, dtype=h.dtype, device=h.device).index_add_(
         0, dst, torch.ones_like(dst, dtype=h.dtype))
     agg = torch.zeros((n_dst, h.shape[1]), dtype=h.dtype,
@@ -72,20 +70,8 @@ def _mean_aggregate(h, src, dst, n_dst):
     return agg / deg.clamp_min(1.0)[:, None]
 
 
-def sage_forward(params, sample, precision="float32") -> torch.Tensor:
-    h = sample["feats"]
-    layers = sample["layers"]
-    for l, (p, blk) in enumerate(zip(params["layers"], layers)):
-        n_dst = blk["n_dst"]
-        agg = _mean_aggregate(h, blk["src"], blk["dst"], n_dst)
-        h = (matmul(h[:n_dst], p["w_self"], precision)
-             + matmul(agg, p["w_neigh"], precision) + p["b"])
-        if l < len(layers) - 1:
-            h = torch.relu(h)
-    return h
-
-
-def _edge_softmax(scores, dst, n_dst):
+def edge_softmax(scores, dst, n_dst):
+    """(E, H) scores -> their softmax over each destination's in-edges."""
     heads = scores.shape[1]
     m = torch.full((n_dst, heads), -math.inf, dtype=scores.dtype,
                    device=scores.device)
@@ -97,39 +83,13 @@ def _edge_softmax(scores, dst, n_dst):
     return ex / z[dst]
 
 
-def gat_forward(params, sample, precision="float32") -> torch.Tensor:
-    h = sample["feats"]
-    layers = sample["layers"]
-    for l, (p, blk) in enumerate(zip(params["layers"], layers)):
-        n_dst, src, dst = blk["n_dst"], blk["src"], blk["dst"]
-        d_in, heads, d_h = p["w"].shape
-        hp = matmul(h, p["w"].reshape(d_in, heads * d_h), precision).view(
-            -1, heads, d_h)
-        el = (hp * p["a_l"]).sum(-1)
-        er = (hp[:n_dst] * p["a_r"]).sum(-1)
-        alpha = _edge_softmax(F.leaky_relu(el[src] + er[dst], 0.2), dst,
-                              n_dst)
-        out = torch.zeros((n_dst, heads, d_h), dtype=h.dtype,
-                          device=h.device).index_add_(
-            0, dst, alpha[:, :, None] * hp[src])
-        h = out.reshape(n_dst, heads * d_h) + p["b"]
-        if l < len(layers) - 1:
-            h = F.elu(h)
-    if "head" in params:
-        h = matmul(h, params["head"], precision)
-    return h
-
-
-FORWARD = {"graphsage": sage_forward, "gat": gat_forward}
-
-
-def step_loss(arch, params, samples, precision="float32",
+def step_loss(forward, params, samples, precision="float32",
               slots=None) -> torch.Tensor:
     """The mean over trainers (``slots``: the ones taken; all by default)
-    of each trainer's mean cross-entropy over its seeds."""
-    fwd = FORWARD[arch]
+    of each trainer's mean cross-entropy over its seeds, ``forward``
+    giving each sample's logits (an architecture's plug-in's)."""
     slots = range(len(samples)) if slots is None else slots
-    losses = [F.cross_entropy(fwd(params, samples[s], precision),
+    losses = [F.cross_entropy(forward(params, samples[s], precision),
                               samples[s]["labels"]) for s in slots]
     return torch.stack(losses).mean()
 
@@ -156,10 +116,11 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def loss_and_grads(arch, params, samples, precision="float32", slots=None):
+def loss_and_grads(forward, params, samples, precision="float32",
+                   slots=None):
     """(loss, gradient tree) at ``params``."""
     live = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
-    loss = step_loss(arch, live, samples, precision, slots)
+    loss = step_loss(forward, live, samples, precision, slots)
     paths = [p for p, _ in leaves(live)]
     grads = torch.autograd.grad(loss, [t for _, t in leaves(live)])
     by_path = dict(zip(paths, grads))

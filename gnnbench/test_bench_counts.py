@@ -8,6 +8,9 @@ import pytest
 
 from gnnbench import counts, harness, trace
 
+SAGE = harness.plugin("archs", "graphsage")
+GAT = harness.plugin("archs", "gat")
+
 PEAK_BYTES = {"hbm_byte_s": 1.0, "fp32_flop_s": 1e9}     # bytes bound
 PEAK_OPS = {"hbm_byte_s": 1e9, "fp32_flop_s": 1.0}       # ops bound
 
@@ -46,9 +49,9 @@ def test_model_flops_graphsage_by_hand():
     # forward: 2 products 2 x 3 x 2 (48) + 4 x 3 adds + 2 x 3 divisions;
     # backward: the weights' products again (layer 0: no input gradient)
     # and the edge reduction again
-    assert counts.model_flops_per_step(_model("graphsage", 2), 2, 1) == \
+    assert SAGE.flops_per_step(_model("graphsage", 2), 2, 1) == \
         2 * (48 + 18)
-    assert counts.model_flops_per_step(_model("graphsage", 2), 2, 4) == \
+    assert SAGE.flops_per_step(_model("graphsage", 2), 2, 4) == \
         4 * 2 * (48 + 18)
 
 
@@ -56,13 +59,13 @@ def test_model_flops_gat_by_hand():
     # projection 6 x 3 x 4 (144), head dots 2 x (6 + 2) x 4 (64), scores
     # and softmax 5 x 4 x 2 (40), weighted sum 2 x 4 x 4 (32)
     gat = _model("gat", 4, num_heads=2)
-    assert counts.model_flops_per_step(gat, 2, 1) == 2 * (144 + 136)
+    assert GAT.flops_per_step(gat, 2, 1) == 2 * (144 + 136)
     # 3 classes: the last layer is 2 heads of 1 column, so a head product
     # 2 x 2 x 3 forward (24) and twice that backward
     gat3 = _model("gat", 3, num_heads=2)
     proj = 2 * 6 * 3 * 2
     edges = 2 * 8 * 2 + 5 * 4 * 2 + 2 * 4 * 2
-    assert counts.model_flops_per_step(gat3, 2, 1) == \
+    assert GAT.flops_per_step(gat3, 2, 1) == \
         2 * (proj + edges) + 3 * 24
 
 
@@ -70,7 +73,7 @@ def test_kernel_least_per_step_sums_the_layers():
     model = _model("graphsage", 2)
     model.update(num_layers=2, fanouts=[3, 2])
     live = [(12, 5, 6), (4, 3, 2)]
-    got = counts.kernel_least_per_step(model, 2, 1, live, PEAK_OPS)
+    got = SAGE.kernel_least_per_step(model, 2, 1, live, PEAK_OPS)
     assert got == {"fused_gather_aggregate": 12 * 3 + 4 * 4}
 
 
@@ -114,7 +117,8 @@ class _FakeTrainer:
 
 
 def test_the_rate_is_taken_over_the_whole_window():
-    cell = types.SimpleNamespace(batch_size=10, model=_model("graphsage", 2))
+    cell = types.SimpleNamespace(batch_size=10, model=_model("graphsage", 2),
+                                 arch=SAGE)
     st = types.SimpleNamespace(tr=_FakeTrainer(), next_epoch=0)
     t0 = time.perf_counter()
     w = harness.window(cell, st, 0.25, False, t0, "cpu", log=lambda *a: None)

@@ -1,10 +1,12 @@
-"""The benchmark's inputs: the frozen R-MAT copy against the port's
-generator, and every draw repeatable from the seed, for any seed."""
+"""The benchmark's inputs: the R-MAT plug-in's frozen generator against
+the port's, and every draw repeatable from the seed, for any seed."""
 import numpy as np
 import pytest
 import torch
 
-from gnnbench import inputs
+from gnnbench import harness, inputs
+
+RMAT = harness.plugin("graphs", "rmat")
 
 DATA = {"num_nodes": 1024, "rmat": {"edge_factor": 30, "a": 0.57,
                                     "b": 0.19, "c": 0.19},
@@ -16,8 +18,8 @@ def test_frozen_rmat_is_the_ports_generator(scale, seed):
     from repro_torch.graph.generate import rmat_graph
 
     g = rmat_graph(scale, edge_factor=30, seed=seed)
-    indptr, indices = inputs.rmat_edges(scale, 30, a=0.57, b=0.19, c=0.19,
-                                        seed=seed)
+    indptr, indices = RMAT.rmat_edges(scale, 30, a=0.57, b=0.19, c=0.19,
+                                      seed=seed)
     assert np.array_equal(g.indptr, indptr)
     assert np.array_equal(g.indices, indices)
     assert np.array_equal(g.edge_ids, np.arange(len(indices)))
@@ -25,8 +27,8 @@ def test_frozen_rmat_is_the_ports_generator(scale, seed):
 
 @pytest.mark.parametrize("seed", [0, 7, 2**31 + 5, 2**40 + 1, -3])
 def test_graph_data_repeats_from_its_seed(seed):
-    a = inputs.make_graph_data(DATA, seed)
-    b = inputs.make_graph_data(DATA, seed)
+    a = RMAT.make(DATA, seed)
+    b = RMAT.make(DATA, seed)
     for k in ("indptr", "indices", "feats", "labels", "split_mask"):
         assert np.array_equal(getattr(a, k), getattr(b, k))
     assert a.feats.dtype == np.float32 and a.feats.shape == (1024, 100)
@@ -42,8 +44,8 @@ def test_graph_data_repeats_from_its_seed(seed):
 
 
 def test_seeds_differ():
-    a = inputs.make_graph_data(DATA, 1)
-    b = inputs.make_graph_data(DATA, 2)
+    a = RMAT.make(DATA, 1)
+    b = RMAT.make(DATA, 2)
     assert not np.array_equal(a.feats, b.feats)
     assert not np.array_equal(a.indices[:100], b.indices[:100])
 
@@ -54,10 +56,9 @@ def test_weights_take_the_ports_layout(arch, heads):
 
     model = dict(arch=arch, num_layers=3, in_dim=100, hidden_dim=256,
                  num_classes=47, fanouts=[15, 10, 5], num_heads=heads)
-    w = inputs.make_weights(model, 2**31 + 9, "cpu")
-    ref = init_gnn(GNNConfig(arch=arch, in_dim=100, hidden_dim=256,
-                             num_classes=47, fanouts=[15, 10, 5],
-                             batch_size=8, num_heads=heads or 2),
+    plug = harness.plugin("archs", arch)
+    w = inputs.make_weights(plug, model, 2**31 + 9, "cpu")
+    ref = init_gnn(GNNConfig(**plug.port_config(model, 8)),
                    torch.Generator().manual_seed(0))
 
     def shapes(t):
@@ -67,7 +68,7 @@ def test_weights_take_the_ports_layout(arch, heads):
             return [shapes(v) for v in t]
         return tuple(t.shape)
     assert shapes(w) == shapes(ref)
-    again = inputs.make_weights(model, 2**31 + 9, "cpu")
+    again = inputs.make_weights(plug, model, 2**31 + 9, "cpu")
     assert torch.equal(w["layers"][0]["b"], again["layers"][0]["b"])
     for a, b in zip(w["layers"], again["layers"]):
         for k in a:

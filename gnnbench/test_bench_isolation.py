@@ -1,8 +1,8 @@
 """What a run loads: nothing whose top-level name is ``jax``, ``jaxlib``,
 ``flax`` or ``repro`` (the JAX package; ``repro_torch`` only begins with
 that name, so names are compared whole, up to the first dot), and the
-reference imports nothing of the program (``repro_torch``), of JAX or of
-the JAX package's scripts."""
+reference and the architecture and graph plug-ins import nothing of the
+program (``repro_torch``), of JAX or of the JAX package's scripts."""
 import ast
 import json
 import os
@@ -67,7 +67,11 @@ def test_no_source_of_the_benchmark_imports_jax_or_its_package(path):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in sorted((BENCH / "reference").glob("*.py")):
+    """The reference and the plug-ins (architectures and graphs)."""
+    paths = sorted(p for d in ("reference", "archs", "graphs")
+                   for p in (BENCH / d).glob("*.py"))
+    assert {p.parent.name for p in paths} == {"reference", "archs", "graphs"}
+    for path in paths:
         assert _imports(path) <= {"__future__", "dataclasses", "math",
                                   "statistics", "typing", "numpy", "torch",
                                   "."}, path
